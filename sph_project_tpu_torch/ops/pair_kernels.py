@@ -1,0 +1,298 @@
+"""The pair passes of the DFSPH main path: plain bodies and the CUDA kernel.
+
+Each pass is a named body. Its plain version below is written against
+``pairs.Cx`` as the JAX package writes it against ``ops/pair_exec.Cx`` (the
+JAX source is named beside each body), and ``csrc/pair_pass.cu`` holds the
+same body as a device functor. :func:`run` launches the CUDA kernel for CUDA
+tensors and evaluates the plain body (``pairs.run_plain``) for CPU tensors;
+the CUDA path never falls back to the plain one. Outputs are per row, zero on
+rows that do not produce; vector outputs come back as (N, 3).
+
+Only bodies of the main path exist: standard viscosity, cubic kernel, no
+dynamic rigid bodies (their wrench outputs are absent).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from ..core.params import MATERIAL_FLUID, MATERIAL_RIGID, SimParams
+from . import _build
+from . import kernels
+from .pairs import PairEnv, collect, run_plain
+
+
+def _w(d2, params):
+    return kernels.cubic_w_gw_d2(d2, params.support_radius, params.dim,
+                                 need_gw=False)[0]
+
+
+def _gw(d2, params):
+    return kernels.cubic_w_gw_d2(d2, params.support_radius, params.dim,
+                                 need_w=False)[1]
+
+
+def _w_diam(params) -> torch.Tensor:
+    """W(particle diameter) computed in float32, as the JAX body does."""
+    return kernels.W(torch.tensor(params.particle_diameter, dtype=torch.float32),
+                     params.support_radius, params.dim, params.kernel_type)
+
+
+# ---- plain bodies ----------------------------------------------------------
+
+def density_body(cx, params, flags=0):
+    """common.compute_density :261."""
+    _, d2, mask = cx.geometry()
+    return {"s": cx.sum(cx.slab("rest_volume") * _w(d2, params), mask)}
+
+
+def alpha_body(cx, params, flags=0):
+    """dfsph.compute_alpha :32."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    c = -cx.slab("rest_volume") * gw
+    fluid_j = mask & (cx.slab("material") == MATERIAL_FLUID)
+    out = {"sum_sq": cx.sum(c * c * d2, fluid_j)}
+    for d in range(cx.dim):
+        out[f"vec{d}"] = cx.sum(c * R[d], mask)
+    return out
+
+
+def nonpressure_body(cx, params, flags=0):
+    """common._nonpressure_outputs :380 (surface tension + standard
+    viscosity; no dynamic-rigid wrench)."""
+    d2c = 2.0 * (params.dim + 2)
+    diam = params.particle_diameter
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    w_dm = _w_diam(params).to(d2.device)
+    Wst = torch.where(d2 > diam * diam, _w(d2, params), w_dm)
+    mW = cx.slab("mass") * Wst
+    out = {f"st{d}": cx.sum(cx.where(fluid_j, mW * R[d], 0.0), fluid_j)
+           for d in range(cx.dim)}
+    vb, vs = cx.vec_blk("vel"), cx.vec_slab("vel")
+    v_xy = sum((vb[d] - vs[d]) * R[d] for d in range(cx.dim))
+    denom = d2 + 0.01 * params.support_radius ** 2
+    inv_denom = 1.0 / denom
+    inv_rho_j = cx.slab("inv_rho")
+    m_ij = 0.5 * (cx.blk("mass") + cx.slab("mass"))
+    coef_f = d2c * params.viscosity * m_ij * inv_rho_j * inv_denom * v_xy
+    m_b = params.density0 * cx.slab("rest_volume")
+    coef_b = d2c * params.viscosity_b * m_b * cx.blk("inv_rho") * \
+        inv_denom * v_xy
+    coef = (cx.where(fluid_j, coef_f, 0.0) +
+            cx.where(rigid_j, coef_b, 0.0)) * gw
+    for d in range(cx.dim):
+        out[f"acc{d}"] = cx.sum(coef * R[d], mask)
+    return out
+
+
+def divergence_body(cx, params, flags=0):
+    """dfsph._divergence_sum :148; ``flags & 1`` adds the neighbour count."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    vb, vs = cx.vec_blk("vel"), cx.vec_slab("vel")
+    dv_R = sum((vb[d] - vs[d]) * R[d] for d in range(cx.dim))
+    contrib = cx.slab("rest_volume") * dv_R * gw
+    out = {"s": cx.sum(contrib, mask)}
+    if flags & 1:
+        out["cnt"] = cx.sum(torch.ones_like(contrib), mask)
+    return out
+
+
+def correction_body(cx, params, flags=0):
+    """dfsph._correction_outputs :223 (no dynamic-rigid wrench)."""
+    eps = params.dfsph_eps * params.dt
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    vgw = cx.slab("rest_volume") * gw
+    mat_j = cx.slab("material")
+    k_i, k_j = cx.blk("kappa"), cx.slab("kappa")
+    kr_i, kr_j = cx.blk("k_rho"), cx.slab("k_rho")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID) & (torch.abs(k_i + k_j) > eps)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID) & (torch.abs(k_i) > eps)
+    coef = (cx.where(fluid_j, kr_i + kr_j, 0.0) +
+            cx.where(rigid_j, kr_i, 0.0)) * params.density0 * vgw
+    return {f"dv{d}": cx.sum(-coef * R[d], fluid_j | rigid_j)
+            for d in range(cx.dim)}
+
+
+def density_alpha_divergence_body(cx, params, flags=0):
+    """dfsph.density_alpha_divergence :90 (no rigid pseudo-volume output)."""
+    R, d2, mask = cx.geometry()
+    W = _w(d2, params)
+    vj = cx.slab("rest_volume")
+    gw = _gw(d2, params)
+    c = -vj * gw
+    fluid_j = mask & (cx.slab("material") == MATERIAL_FLUID)
+    vb, vs = cx.vec_blk("vel"), cx.vec_slab("vel")
+    dv_R = sum((vb[d] - vs[d]) * R[d] for d in range(cx.dim))
+    out = {"sd": cx.sum(vj * W, mask),
+           "sum_sq": cx.sum(c * c * d2, fluid_j),
+           "sv": cx.sum(vj * dv_R * gw, mask),
+           "cnt": cx.sum(torch.ones_like(d2), mask)}
+    for d in range(cx.dim):
+        out[f"vec{d}"] = cx.sum(c * R[d], mask)
+    return out
+
+
+def rigid_volume_body(cx, params, flags=0):
+    """The same-object kernel sum of common.compute_rigid_volume_fixedk :230
+    (and compute_rigid_particle_volume :188)."""
+    _, d2, mask = cx.geometry()
+    same = cx.slab("object_id") == cx.blk("object_id")
+    return {"s": cx.sum(cx.where(same, _w(d2, params), 0.0), mask)}
+
+
+def _vec(name):
+    return tuple(f"{name}{d}" for d in range(3))
+
+
+# name -> (body id in pair_pass.cu, plain body, output components, fields)
+BODIES = {
+    "density": (0, density_body, ("s",), ("pos", "rest_volume")),
+    "alpha": (1, alpha_body, ("sum_sq",) + _vec("vec"),
+              ("pos", "rest_volume", "material")),
+    "nonpressure": (2, nonpressure_body, _vec("st") + _vec("acc"),
+                    ("pos", "vel", "material", "mass", "rest_volume",
+                     "inv_rho")),
+    "divergence": (3, divergence_body, ("s", "cnt"),
+                   ("pos", "vel", "rest_volume")),
+    "correction": (4, correction_body, _vec("dv"),
+                   ("pos", "material", "rest_volume", "kappa", "k_rho")),
+    "density_alpha_divergence": (
+        5, density_alpha_divergence_body,
+        ("sd", "sum_sq", "sv", "cnt") + _vec("vec"),
+        ("pos", "vel", "rest_volume", "material")),
+    "rigid_volume": (6, rigid_volume_body, ("s",), ("pos", "object_id")),
+}
+
+launches = {name: 0 for name in BODIES}
+
+
+def out_names(name: str, flags: int = 0) -> tuple:
+    names = BODIES[name][2]
+    if name == "divergence" and not flags & 1:
+        names = names[:1]
+    return names
+
+
+def body_constants(name: str, params: SimParams) -> list:
+    """Float constants of the CUDA body, folded in double on the host:
+    c[0..3] from kernels.cubic_constants, then the body's own."""
+    c = kernels.cubic_constants(params.support_radius, params.dim)
+    if name == "nonpressure":
+        d2c = 2.0 * (params.dim + 2)
+        diam = params.particle_diameter
+        c += [diam * diam, float(_w_diam(params)),
+              0.01 * params.support_radius ** 2, d2c * params.viscosity,
+              d2c * params.viscosity_b, params.density0]
+    elif name == "correction":
+        c += [params.dfsph_eps * params.dt, params.density0]
+    return c
+
+
+# ---- CUDA ------------------------------------------------------------------
+
+_PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
+               "object_id", "rest_volume", "mass", "inv_rho", "kappa", "k_rho",
+               "out")
+_DTYPES = {"pos": torch.float32, "vel": torch.float32,
+           "material": torch.int32, "object_id": torch.int32,
+           "rest_volume": torch.float32, "mass": torch.float32,
+           "inv_rho": torch.float32, "kappa": torch.float32,
+           "k_rho": torch.float32}
+N_CONST = 16
+
+
+class PairArgs(ctypes.Structure):
+    """ctypes mirror of ``struct PairArgs`` in csrc/pair_pass.cu."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in _PTR_FIELDS]
+                + [(k, ctypes.c_int) for k in ("n", "gx", "gy", "gz", "flags")]
+                + [("dh2", ctypes.c_float), ("c", ctypes.c_float * N_CONST)])
+
+
+def _lib():
+    fn = _build.load("pair_pass").sph_pair_pass
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
+             params: SimParams, produce: torch.Tensor | None = None,
+             flags: int = 0) -> Dict[str, torch.Tensor]:
+    """Launch the pair kernel for body ``name``; (N,) outputs per component."""
+    body_id, _, _, needs = BODIES[name]
+    names = out_names(name, flags)
+    n = env.n
+    dev = env.cells.device
+    produce = env.produce if produce is None else produce
+    if params.dim != 3:
+        raise ValueError("the CUDA pair kernel is 3D only")
+    args = PairArgs()
+    keep = []
+
+    def ptr(key, t, dtype, shape):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"pair kernel {name}: {key} must be a contiguous {dtype} "
+                f"tensor of shape {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+        keep.append(t)
+        setattr(args, key, t.data_ptr())
+
+    for key in needs:
+        if key not in fields:
+            raise ValueError(f"pair kernel {name}: missing field {key}")
+        shape = (n, 3) if key in ("pos", "vel") else (n,)
+        ptr(key, fields[key], _DTYPES[key], shape)
+    ptr("cells", env.cells, torch.int32, (n,))
+    ptr("cell_start", env.cell_start, torch.int32, (params.num_cells + 1,))
+    ptr("produce", produce, torch.bool, (n,))
+    out = torch.empty((len(names), n), dtype=torch.float32, device=dev)
+    ptr("out", out, torch.float32, (len(names), n))
+    args.n = n
+    args.gx, args.gy, args.gz = env.grid
+    args.flags = flags
+    args.dh2 = env.dh2
+    consts = body_constants(name, params)
+    for k, v in enumerate(consts):
+        args.c[k] = v
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(body_id, ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"pair kernel {name}: launch failed, CUDA error {err}")
+    launches[name] += 1
+    return {k: out[r] for r, k in enumerate(names)}
+
+
+def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
+                   params: SimParams, produce: torch.Tensor | None = None,
+                   flags: int = 0) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch version of body ``name`` (any device)."""
+    _, body, _, needs = BODIES[name]
+    return run_plain(lambda cx: body(cx, params, flags), env,
+                     {k: fields[k] for k in needs}, out_names(name, flags),
+                     produce=produce)
+
+
+def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
+        params: SimParams, produce: torch.Tensor | None = None,
+        flags: int = 0) -> Dict[str, torch.Tensor]:
+    """One pair pass: the CUDA kernel for CUDA tensors, the plain body for
+    CPU tensors. Returns per-row outputs, vectors merged to (N, 3)."""
+    kind = env.cells.device.type
+    if kind == "cuda":
+        out = run_cuda(name, env, fields, params, produce, flags)
+    elif kind == "cpu":
+        out = run_plain_body(name, env, fields, params, produce, flags)
+    else:
+        raise ValueError(f"unsupported device {env.cells.device}")
+    return collect(out)

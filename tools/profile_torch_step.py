@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where a step of the PyTorch port spends its time on the GPU.
+
+Loads a scene (default: the flagship ``large_scale_dfsph.json`` at full size),
+prepares it on the card and runs ``WARMUP`` steps. Then it runs ``STEPS`` steps
+twice from the same state: first without the profiler, for the wall time,
+then again under ``torch.profiler``, for the device busy time (the union of
+kernel intervals). The idle share is 1 - busy / wall of the unprofiled run;
+the profiled run's own wall time is printed beside it. Also prints the
+corrector iterations (each one reads its error on the host; both runs must
+agree) and device time grouped by kernel family and by kernel name. Ends with
+one JSON line of the same numbers.
+
+    python3 tools/profile_torch_step.py [--scene FILE]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+FAMILIES = (("pair_kernel", "pair pass (csrc/pair_pass.cu)"),
+            ("permute_kernel", "permute (csrc/permute.cu)"),
+            ("sort", "torch.sort"), ("radix", "torch.sort"),
+            ("searchsorted", "cell table (searchsorted)"))
+WARMUP = 3
+STEPS = 5
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for key, fam in FAMILIES:
+        if key in low:
+            return fam
+    return "other PyTorch kernels"
+
+
+def union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", default=os.path.join(
+        ROOT, "data", "scenes", "large_scale_dfsph.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_project_tpu_torch.scene import load_scene
+    from sph_project_tpu_torch.sim import Simulation
+
+    card = subprocess.run(["nvidia-smi", "-i", "0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    scene, state = load_scene(args.scene)
+    sim = Simulation(scene, state)
+    for _ in range(WARMUP):
+        sim.step()
+    torch.cuda.synchronize()
+    start = sim.state
+
+    def timed_steps():
+        """Runs STEPS steps from ``start``; (per-step wall ms, iteration
+        counts)."""
+        sim.state = start
+        iters, ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            d = sim.step()
+            iters.append((int(d["solver_iters"]), int(d["div_iters"])))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, iters
+
+    wall_ms, iters = timed_steps()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms, prof_iters = timed_steps()
+    wall_us, prof_wall_us = sum(wall_ms) * 1e3, sum(prof_ms) * 1e3
+    if prof_iters != iters:
+        print(f"profile_torch_step: the replay iterated differently "
+              f"({prof_iters} vs {iters})", file=sys.stderr)
+        return 1
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels])
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    by_family: dict = {}
+    for name, (n, t) in by_name.items():
+        f = by_family.setdefault(family(name), [0, 0.0])
+        f[0] += n
+        f[1] += t
+    steps = STEPS
+    print(f"card: {card}; scene {os.path.basename(args.scene)}, "
+          f"{scene.params.n_particles} particles; {steps} steps profiled")
+    print(f"per step: wall {wall_us / steps / 1e3:.3f} ms (under the "
+          f"profiler {prof_wall_us / steps / 1e3:.3f} ms), device busy "
+          f"{busy_us / steps / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / wall_us:.3f}; kernels per step "
+          f"{len(kernels) / steps:.1f}; corrector iterations "
+          f"(density, divergence) {iters}")
+    print(f"per-step wall ms without the profiler {wall_ms}, under it "
+          f"{prof_ms}")
+    print("device time per step by family:")
+    for fam, (n, t) in sorted(by_family.items(), key=lambda x: -x[1][1]):
+        print(f"  {t / steps / 1e3:8.3f} ms  {n / steps:6.1f} launches  {fam}")
+    print("top kernels by device time per step:")
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
+        print(f"  {t / steps / 1e3:8.3f} ms  {n / steps:6.1f}x  {name[:100]}")
+    print(json.dumps({
+        "card": card, "steps": steps, "iters": iters,
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "profiled_wall_ms_per_step": prof_wall_us / steps / 1e3,
+        "busy_ms_per_step": busy_us / steps / 1e3,
+        "idle_share": 1 - busy_us / wall_us,
+        "family_ms_per_step": {k: v[1] / steps / 1e3
+                               for k, v in by_family.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
