@@ -10,20 +10,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time;
-3. the main path: load the flagship scene ``large_scale_dfsph.json`` at full
-   size (1,958,454 particles), ``Simulation(scene, state)`` (prepare) and
-   ``STEPS`` steps on the card. Launch counts are zeroed just before and read
-   just after; every kernel must have launched. Per step: wall ms, iteration
-   counts, density range, overflow counters;
+3. the paths, each on the flagship scene ``large_scale_dfsph.json`` at full
+   size (1,958,454 particles) through ``load_scene`` and
+   ``Simulation(scene, state)`` (prepare) and some steps on the card:
+   the cold step through the cell-list kernel; the warm-started step through
+   the slab-window kernel (``pair_backend="pallas"``, both warm starts), 8
+   steps; and two short runs, warm through the cell-list kernel and cold
+   through the slab-window kernel, so that every body launches under both
+   engines. Launch counts are zeroed just before each path and read just
+   after; every kernel the path should run must have launched, and no kernel
+   of the other engine. Per step: wall ms, iteration counts, density range,
+   overflow counters;
 4. each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes: every pair body on the sorted state the main path left,
-   the fused gather on the permutation of the next step's sort. Prints the
-   error, the kernel's, the plain version's and (for the gather)
-   ``index_select``'s time, and the least time the card could take;
+   flagship's shapes: every pair body of the cell-list kernel on the sorted
+   state the cold path left, every pair body of the slab-window kernel on the
+   state the warm slab path left (all producing blocks, neighbour counts
+   exact), the two kernels against each other there, and the fused gather on
+   the permutation of the next step's sort with the cold path's fields and
+   with the warm path's. Prints the error, the kernel's, the plain version's
+   and (for the gather) ``index_select``'s time, the least time the card could
+   take, and the window statistics of the slab-window engine;
 5. the small domain-box scene for ``SMALL_STEPS`` steps on the CPU (plain
-   versions) and on the card (kernels): equal iteration counts every step and
-   every fluid particle within 1e-5 of its counterpart;
-6. one JSON line per kernel record, the card line again, then the result.
+   versions) and on the card (kernels), cold through the cell-list engine,
+   warm through it, and warm through the slab-window engine: equal iteration
+   counts every step and every fluid particle within 1e-5 of its counterpart;
+6. one JSON line with every kernel record, the card line again, then the
+   result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -41,8 +53,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "data", "scenes", "large_scale_dfsph.json")
-STEPS = 8
+WARM = dict(dfsph_warm_start=True, dfsph_warm_start_div=True)
+# (label, parameter overrides, steps); the first two are measured in phase 4
+PATHS = (("cold, cell-list kernel", {}, 4),
+         ("warm start, slab-window kernel", dict(WARM, pair_backend="pallas"), 8),
+         ("warm start, cell-list kernel", WARM, 3),
+         ("cold, slab-window kernel", dict(pair_backend="pallas"), 2))
 SMALL_STEPS = 20
+SMALL_RUNS = (("cold, cell-list", {}), ("warm start, cell-list", WARM),
+              ("warm start, slab-window", dict(WARM, pair_backend="pallas")))
 # kernel vs plain on the same inputs: float32 sums of ~30-60 terms taken in
 # another order (max|a-b| <= TOL * max(1, max|b|)); counts and the gather exact
 TOL = 2e-5
@@ -53,14 +72,20 @@ NN_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # operations per pair inside the radius: the geometry, R (3 sub) and d2
-# (3 mul, 2 add), plus the body's own, counted from csrc/pair_pass.cu (a sqrt
-# or a division counts as one). Candidates the cell walk tests and rejects are
-# this design's cost, not the function's, so the bound does not count them.
+# (3 mul, 2 add), plus the body's own, counted from csrc/pair_bodies.cuh (a
+# sqrt or a division counts as one). Candidates an engine tests and rejects
+# are that design's cost, not the function's, so the bound does not count
+# them, and a body's bound differs between the engines only by the table.
 GEOMETRY_OPS = 8
 OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
                 "divergence": 24, "correction": 28,
-                "density_alpha_divergence": 60, "rigid_volume": 15}
-PAIR_REPLACES = "sph_project_tpu/ops/pair_dma.py:574"
+                "density_alpha_divergence": 60, "rigid_volume": 15,
+                "nonpressure_warm": 71}
+ENGINES = {
+    "pair_pass": ("sph_project_tpu_torch/csrc/pair_pass.cu",
+                  "sph_project_tpu/ops/pair_dma.py:574"),
+    "pair_slab": ("sph_project_tpu_torch/csrc/pair_slab.cu",
+                  "sph_project_tpu/ops/pair_exec.py:204")}
 PERMUTE_REPLACES = "sph_project_tpu/ops/permute.py:48"
 
 
@@ -81,10 +106,11 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls (after one
-    warm-up), from CUDA events."""
-    fn()
+    warm-up unless the caller has made it), from CUDA events."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -100,6 +126,10 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def small_box_config() -> dict:
@@ -150,175 +180,274 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})})")
 
-    # ---- 3. the main path at full size -------------------------------------
-    t0 = time.perf_counter()
-    scene, state = load_scene(FLAGSHIP)
-    params = scene.params
-    mat = state.particles.material
-    n_fluid = int((mat == MATERIAL_FLUID).sum())
-    n_wall = int((mat == MATERIAL_RIGID).sum())
-    say(f"[3] flagship loaded in {time.perf_counter() - t0:.1f} s: "
-        f"{n_fluid} fluid + {n_wall} wall particles, n_pad {params.n_pad}, "
-        f"grid {params.grid_num}")
-    check(n_fluid + n_wall == 1958454, "flagship particle count")
-    rho0 = params.density0
-    for k in pk.launches:
-        pk.launches[k] = 0
-    permlib.launches["permute"] = 0
-    t0 = time.perf_counter()
-    sim = simlib.Simulation(scene, state)
-    torch.cuda.synchronize()
-    say(f"[3] prepare (sort, rigid volumes, density, alpha) on "
-        f"{sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    step_ms = []
-    for s in range(STEPS):
+    # ---- 3. the paths at full size ------------------------------------------
+    def drive(label: str, overrides: dict, steps: int):
+        """One path on the flagship: load, prepare, ``steps`` gated steps.
+        Returns (simulation, launches of that run)."""
         t0 = time.perf_counter()
-        d = sim.step()
+        scene, state = load_scene(FLAGSHIP, **overrides)
+        params = scene.params
+        mat = state.particles.material
+        n_fluid = int((mat == MATERIAL_FLUID).sum())
+        n_wall = int((mat == MATERIAL_RIGID).sum())
+        say(f"[3] {label}: flagship loaded in {time.perf_counter() - t0:.1f} s"
+            f": {n_fluid} fluid + {n_wall} wall particles, n_pad "
+            f"{params.n_pad}, grid {params.grid_num}, pair_block "
+            f"{params.pair_block}, overrides {json.dumps(overrides)}")
+        check(n_fluid + n_wall == 1958454, "flagship particle count")
+        rho0 = params.density0
+        for k in pk.launches:
+            pk.launches[k] = 0
+        permlib.launches["permute"] = 0
+        t0 = time.perf_counter()
+        sim = simlib.Simulation(scene, state)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        row = {k: (float(v) if v.is_floating_point() else int(v))
-               for k, v in d.items()}
-        say(f"[3] step {s}: {step_ms[-1]:.2f} ms "
-            f"solver_iters {row['solver_iters']} div_iters {row['div_iters']} "
-            f"density_avg {row['density_avg']:.3f} "
-            f"density_max {row['density_max']:.3f} vel_max {row['vel_max']:.4f} "
-            f"neighbor_overflow {row['neighbor_overflow']} "
-            f"sort_overflow {row['sort_overflow']}")
-        for k in ("density_avg", "density_max"):
-            check(0.72 * rho0 <= row[k] <= 1.01 * rho0,
-                  f"step {s}: {k} {row[k]} outside [0.72, 1.01] rho0")
-        check(row["neighbor_overflow"] == 0 and row["sort_overflow"] == 0,
-              f"step {s}: overflow")
-        check(row["fluid_num"] == n_fluid, f"step {s}: fluid count")
-    torch.cuda.synchronize()
-    launches = dict(pk.launches)
-    launches["permute"] = permlib.launches["permute"]
-    say(f"[3] launches on the main path: {json.dumps(launches)}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
-    p = sim.state.particles
-    check(bool(torch.isfinite(p.pos).all()), "non-finite positions")
-    say(f"[3] steps: mean {np.mean(step_ms):.2f} ms, after the first "
-        f"{np.mean(step_ms[1:]):.2f} ms")
+        say(f"[3] {label}: prepare (sort, rigid volumes, density, alpha) on "
+            f"{sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        step_ms = []
+        for s in range(steps):
+            t0 = time.perf_counter()
+            d = sim.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            row = {k: (float(v) if v.is_floating_point() else int(v))
+                   for k, v in d.items()}
+            say(f"[3] step {s}: {step_ms[-1]:.2f} ms "
+                f"solver_iters {row['solver_iters']} "
+                f"div_iters {row['div_iters']} "
+                f"density_avg {row['density_avg']:.3f} "
+                f"density_max {row['density_max']:.3f} "
+                f"vel_max {row['vel_max']:.4f} "
+                f"neighbor_overflow {row['neighbor_overflow']} "
+                f"sort_overflow {row['sort_overflow']}")
+            for k in ("density_avg", "density_max"):
+                check(0.72 * rho0 <= row[k] <= 1.01 * rho0,
+                      f"step {s}: {k} {row[k]} outside [0.72, 1.01] rho0")
+            check(row["neighbor_overflow"] == 0 and row["sort_overflow"] == 0,
+                  f"step {s}: overflow")
+            check(row["fluid_num"] == n_fluid, f"step {s}: fluid count")
+        torch.cuda.synchronize()
+        launches = dict(pk.launches)
+        launches["permute"] = permlib.launches["permute"]
+        say(f"[3] {label}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        engine = pk.engine_of(sim.state.cached_neighbors)
+        check(engine == ("pair_slab" if overrides.get("pair_backend")
+                         == "pallas" else "pair_pass"), f"{label}: engine")
+        unused = "nonpressure" if params.dfsph_warm_start else "nonpressure_warm"
+        expected = {f"{engine}/{b}" for b in pk.BODIES if b != unused}
+        expected.add("permute")
+        for k, v in launches.items():
+            check((v > 0) == (k in expected),
+                  f"{label}: kernel {k} launched {v} times")
+        check(bool(torch.isfinite(sim.state.particles.pos).all()),
+              "non-finite positions")
+        say(f"[3] {label}: steps mean {np.mean(step_ms):.2f} ms, after the "
+            f"first {np.mean(step_ms[1:]):.2f} ms")
+        if params.dfsph_warm_start:
+            k_max = float(sim.state.dfsph_kappa.abs().max())
+            kv_max = float(sim.state.dfsph_kappa_v.abs().max())
+            say(f"[3] {label}: the block is in free fall in these steps, so "
+                f"the carried stiffness stays near zero (max |kappa| "
+                f"{k_max:.3e}, max |kappa_v| {kv_max:.3e}): the warm path's "
+                f"kernels and carries run, its saving of iterations does not "
+                f"show here")
+        return sim, launches
+
+    sims, path_launches = [], []
+    for label, overrides, steps in PATHS:
+        sim, launches = drive(label, overrides, steps)
+        path_launches.append(launches)
+        # the two short runs only count launches
+        sims.append(sim if len(sims) < 2 else None)
+        del sim
+        torch.cuda.empty_cache()
+    total_launches = {k: sum(p[k] for p in path_launches)
+                      for k in path_launches[0]}
+    for k, v in total_launches.items():
+        check(v > 0, f"kernel {k} launched on no path")
 
     # ---- 4. kernels vs plain versions at the flagship's shapes -------------
-    env = sim.state.cached_neighbors
-    n = params.n_pad
-    rng = np.random.default_rng(0)
-    kappa = torch.from_numpy(
-        rng.uniform(-50.0, 200.0, n).astype(np.float32)).cuda()
-    fields = {"pos": p.pos, "vel": p.vel, "material": p.material,
-              "mass": p.mass, "rest_volume": p.rest_volume,
-              "inv_rho": common._inv_rho(p), "object_id": p.object_id,
-              "kappa": kappa,
-              "k_rho": kappa / torch.clamp_min(p.density, 1e-12)}
-    rigid_rows = p.material == MATERIAL_RIGID
-
-    def work(produce):
-        """(candidates tested, pairs inside the radius) over these rows."""
-        rows = torch.nonzero(produce).flatten()
-        _, ln = pairs.candidate_ranges(env, rows)
-        cnt = pk.run_cuda("divergence", env, fields, params, produce,
-                          flags=1)["cnt"]
-        return int(ln.sum()), int(cnt.sum().item())
-
-    work_of = {"fluid": work(env.produce), "rigid": work(rigid_rows)}
-    for k, (cand, npairs) in work_of.items():
-        say(f"[4] {k} rows: {cand} candidates tested, {npairs} pairs inside "
-            f"the radius ({cand / max(npairs, 1):.2f} candidates per pair)")
     records = []
-    for name, (_, _, _, needs) in pk.BODIES.items():
-        flags = 1 if name == "divergence" else 0
-        produce = rigid_rows if name == "rigid_volume" else None
-        fk = {k: fields[k] for k in needs}
-        out_k = pk.run_cuda(name, env, fk, params, produce, flags)
-        out_p = pk.run_plain_body(name, env, fk, params, produce, flags)
-        torch.cuda.synchronize()
-        err = 0.0
-        for c in out_k:
-            e = float((out_k[c] - out_p[c]).abs().max())
-            err = max(err, e)
-            if c == "cnt":
-                check(e == 0.0, f"{name}: neighbour counts differ")
-            lim = TOL * max(1.0, float(out_p[c].abs().max()))
-            check(e <= lim, f"{name}.{c}: max error {e} > {lim}")
-        ms = cuda_ms(lambda: pk.run_cuda(name, env, fk, params, produce,
-                                         flags), 20)
-        plain_ms = cuda_ms(lambda: pk.run_plain_body(name, env, fk, params,
-                                                     produce, flags), 2)
-        _, npairs = work_of["rigid" if produce is not None else "fluid"]
-        n_bytes = (sum(t.numel() * t.element_size() for t in fk.values())
-                   + env.cells.numel() * 4 + env.cell_start.numel() * 4
-                   + n * 1 + len(out_k) * n * 4)
-        n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        say(f"[4] pair_pass/{name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop)")
-        records.append(dict(
-            name=f"pair_pass/{name}", route="cuda",
-            source="sph_project_tpu_torch/csrc/pair_pass.cu",
-            replaces=PAIR_REPLACES, launches=launches[name],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None))
 
-    # the next step's sort: advance positions as the step does, then bin
-    p2 = common.update_fluid_position(p, params)
-    p2 = common.enforce_domain_boundary(p2, params)
-    cells = nblib.flat_cell_ids(p2.pos, p2.material != MATERIAL_NONE, params)
-    perm = nblib.sort_permutation(cells)
-    arrays = {k: getattr(p2, k) for k in simlib.permuted_keys(params)}
-    arrays["cells"] = cells
-    moved = int((perm != torch.arange(n, device=perm.device)).sum())
-    out_k = permlib.permute_fields_cuda(perm, arrays)
-    out_p = permlib.permute_fields_plain(perm, arrays)
-    torch.cuda.synchronize()
-    for k in arrays:
-        check(out_k[k].dtype == arrays[k].dtype, f"permute {k}: dtype")
-        check(torch.equal(out_k[k].view(torch.int32),
-                          out_p[k].view(torch.int32)),
-              f"permute {k}: not bit-equal")
-    ms = cuda_ms(lambda: permlib.permute_fields_cuda(perm, arrays), 20)
-    plain_ms = cuda_ms(lambda: permlib.permute_fields_plain(perm, arrays), 20)
-    lib_ms = cuda_ms(lambda: [torch.index_select(v, 0, perm)
-                              for v in arrays.values()], 20)
-    n_bytes = (2 * sum(v.numel() * v.element_size() for v in arrays.values())
-               + perm.numel() * perm.element_size())
-    b_ms, b_by = bound_ms(n_bytes, 0)
-    say(f"[4] permute: {len(arrays)} fields, {moved} of {n} rows move, "
-        f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"index_select per field {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {n_bytes / 1e6:.1f} MB)")
+    def pair_fields(p, n):
+        rng = np.random.default_rng(0)
+        kappa = torch.from_numpy(
+            rng.uniform(-50.0, 200.0, n).astype(np.float32)).cuda()
+        return {"pos": p.pos, "vel": p.vel, "material": p.material,
+                "mass": p.mass, "rest_volume": p.rest_volume,
+                "inv_rho": common._inv_rho(p), "object_id": p.object_id,
+                "kappa": kappa,
+                "k_rho": kappa / torch.clamp_min(p.density, 1e-12)}
+
+    def check_engine(sim):
+        """Every body of the engine of ``sim``'s environment against its
+        plain version on ``sim``'s state; appends the records."""
+        env = sim.state.cached_neighbors
+        params, p = sim.params, sim.state.particles
+        engine = pk.engine_of(env)
+        slab = engine == "pair_slab"
+        n = params.n_pad
+        fields = pair_fields(p, n)
+        rigid_rows = p.material == MATERIAL_RIGID
+
+        def work(produce):
+            """(candidates tested, pairs inside the radius) over these rows."""
+            if slab:
+                rows_in_block = produce.view(-1, env.block).sum(1)
+                cand = int((rows_in_block * env.lens.sum(1)).sum())
+            else:
+                rows = torch.nonzero(produce).flatten()
+                cand = int(pairs.candidate_ranges(env, rows)[1].sum())
+            cnt = pk.run_cuda("divergence", env, fields, params, produce,
+                              flags=1)["cnt"]
+            return cand, int(cnt.sum().item())
+
+        work_of = {"fluid": work(env.produce), "rigid": work(rigid_rows)}
+        for k, (cand, npairs) in work_of.items():
+            say(f"[4] {engine}, {k} rows: {cand} candidates tested, {npairs} "
+                f"pairs inside the radius ({cand / max(npairs, 1):.2f} "
+                f"candidates per pair)")
+        table = ((env.starts, env.lens, env.rows) if slab
+                 else (env.cells, env.cell_start))
+        if slab:
+            width = env.lens.sum(1)[env.produce.view(-1, env.block).any(1)]
+            say(f"[4] {engine}: {env.nb} blocks of {env.block} rows, "
+                f"{width.numel()} with fluid rows; candidates in a fluid "
+                f"block's 9 windows: median {int(width.median())}, widest "
+                f"{int(width.max())}; widest single window "
+                f"{int(env.lens.max())}; the plain version runs over all "
+                f"blocks for every body")
+        for name, (_, _, _, needs) in pk.BODIES.items():
+            flags = 1 if name == "divergence" else 0
+            produce = rigid_rows if name == "rigid_volume" else None
+            fk = {k: fields[k] for k in needs}
+
+            def plain():
+                return pk.run_plain_body(name, env, fk, params, produce, flags)
+
+            out_k = pk.run_cuda(name, env, fk, params, produce, flags)
+            out_p = plain()
+            torch.cuda.synchronize()
+            err = 0.0
+            for c in out_k:
+                e = float((out_k[c] - out_p[c]).abs().max())
+                err = max(err, e)
+                if c == "cnt":
+                    check(e == 0.0, f"{engine}/{name}: neighbour counts differ")
+                lim = TOL * max(1.0, float(out_p[c].abs().max()))
+                check(e <= lim, f"{engine}/{name}.{c}: max error {e} > {lim}")
+            ms = cuda_ms(lambda: pk.run_cuda(name, env, fk, params, produce,
+                                             flags), 20)
+            # the slab engine's plain version takes seconds: the comparison
+            # above was its warm-up
+            plain_ms = cuda_ms(plain, 1, warm_up=False) if slab \
+                else cuda_ms(plain, 2)
+            _, npairs = work_of["rigid" if produce is not None else "fluid"]
+            n_bytes = (nbytes(fk.values()) + nbytes(table) + n * 1
+                       + len(out_k) * n * 4)
+            n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            say(f"[4] {engine}/{name}: max_abs_err {err:.3e}, kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop)")
+            records.append(dict(
+                name=f"{engine}/{name}", route="cuda",
+                source=ENGINES[engine][0], replaces=ENGINES[engine][1],
+                launches=total_launches[f"{engine}/{name}"],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None))
+        if slab:
+            # the two kernels on one state: same candidates accepted in the
+            # same order for a row, except a pair two z-cells apart by
+            # rounding, which only the window walk can see
+            cell_env = pairs.make_pair_env(env.cells, env.produce, params)
+            for name, (_, _, _, needs) in pk.BODIES.items():
+                flags = 1 if name == "divergence" else 0
+                produce = rigid_rows if name == "rigid_volume" else None
+                fk = {k: fields[k] for k in needs}
+                a = pk.run_cuda(name, env, fk, params, produce, flags)
+                b = pk.run_cuda(name, cell_env, fk, params, produce, flags)
+                diff = max(float((a[c] - b[c]).abs().max()) for c in a)
+                scale = max(float(b[c].abs().max()) for c in b)
+                say(f"[4] pair_slab vs pair_pass, {name}: largest difference "
+                    f"{diff:.3e} (largest sum {scale:.3e})"
+                    f"{', bit-equal' if diff == 0.0 else ''}")
+                check(diff <= TOL * max(1.0, scale),
+                      f"the two pair kernels differ on {name}: {diff}")
+
+    def check_permute(sim):
+        """The fused gather on the next step's sort of ``sim``'s state:
+        advance positions as the step does, then bin. Returns its numbers."""
+        params, st = sim.params, sim.state
+        n = params.n_pad
+        p2 = common.update_fluid_position(st.particles, params)
+        p2 = common.enforce_domain_boundary(p2, params)
+        cells = nblib.flat_cell_ids(p2.pos, p2.material != MATERIAL_NONE,
+                                    params)
+        perm = nblib.sort_permutation(cells)
+        keys, extras = simlib.permuted_keys(params)
+        arrays = {k: getattr(p2, k) for k in keys}
+        arrays.update({k: getattr(st, k) for k in extras})
+        arrays["cells"] = cells
+        moved = int((perm != torch.arange(n, device=perm.device)).sum())
+        out_k = permlib.permute_fields_cuda(perm, arrays)
+        out_p = permlib.permute_fields_plain(perm, arrays)
+        torch.cuda.synchronize()
+        for k in arrays:
+            check(out_k[k].dtype == arrays[k].dtype, f"permute {k}: dtype")
+            check(torch.equal(out_k[k].view(torch.int32),
+                              out_p[k].view(torch.int32)),
+                  f"permute {k}: not bit-equal")
+        ms = cuda_ms(lambda: permlib.permute_fields_cuda(perm, arrays), 20)
+        plain_ms = cuda_ms(lambda: permlib.permute_fields_plain(perm, arrays),
+                           20)
+        lib_ms = cuda_ms(lambda: [torch.index_select(v, 0, perm)
+                                  for v in arrays.values()], 20)
+        n_bytes = 2 * nbytes(arrays.values()) + nbytes([perm])
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        say(f"[4] permute: {len(arrays)} fields, {moved} of {n} rows move, "
+            f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"index_select per field {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {n_bytes / 1e6:.1f} MB)")
+        return dict(fields=len(arrays), max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+
+    cold_sim, slab_sim = sims[0], sims[1]
+    check_engine(cold_sim)
+    check_engine(slab_sim)
     records.append(dict(
         name="permute", route="cuda",
         source="sph_project_tpu_torch/csrc/permute.cu",
-        replaces=PERMUTE_REPLACES, launches=launches["permute"],
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms))
-    del sim, env, fields, arrays, out_k, out_p
+        replaces=PERMUTE_REPLACES, launches=total_launches["permute"],
+        **check_permute(cold_sim), warm_path=check_permute(slab_sim)))
+    del sims, cold_sim, slab_sim
     torch.cuda.empty_cache()
 
     # ---- 5. small wall scene: CPU plain versions vs card kernels -----------
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        sc, st = load_scene(config=SimConfig(config=small_box_config()))
-        small = simlib.Simulation(sc, st, device=dev)
-        iters = [(int(d["solver_iters"]), int(d["div_iters"]))
-                 for d in (small.step() for _ in range(SMALL_STEPS))]
-        sp = small.state.particles
-        runs[dev] = (iters, sp.pos[sp.material == MATERIAL_FLUID].cpu())
-    check(runs["cpu"][0] == runs["cuda"][0],
-          f"small scene iteration counts differ: {runs['cpu'][0]} vs "
-          f"{runs['cuda'][0]}")
-    a, b = runs["cuda"][1].double(), runs["cpu"][1].double()
-    check(a.shape == b.shape, "small scene fluid counts differ")
-    nn = float(torch.cdist(a, b).min(dim=1).values.max())
-    say(f"[5] small domain-box scene, {SMALL_STEPS} steps: iterations "
-        f"(density, divergence) {runs['cuda'][0]} equal on CPU and card; "
-        f"max nearest-neighbour distance {nn:.3e}")
-    check(nn < NN_TOL, f"small scene trajectories differ by {nn}")
+    for label, overrides in SMALL_RUNS:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            sc, st = load_scene(config=SimConfig(config=small_box_config()),
+                                **overrides)
+            small = simlib.Simulation(sc, st, device=dev)
+            iters = [(int(d["solver_iters"]), int(d["div_iters"]))
+                     for d in (small.step() for _ in range(SMALL_STEPS))]
+            sp = small.state.particles
+            runs[dev] = (iters, sp.pos[sp.material == MATERIAL_FLUID].cpu())
+        check(runs["cpu"][0] == runs["cuda"][0],
+              f"small scene ({label}) iteration counts differ: "
+              f"{runs['cpu'][0]} vs {runs['cuda'][0]}")
+        a, b = runs["cuda"][1].double(), runs["cpu"][1].double()
+        check(a.shape == b.shape, "small scene fluid counts differ")
+        nn = float(torch.cdist(a, b).min(dim=1).values.max())
+        say(f"[5] small domain-box scene, {label}, {SMALL_STEPS} steps: "
+            f"iterations (density, divergence) {runs['cuda'][0]} equal on "
+            f"CPU and card; max nearest-neighbour distance {nn:.3e}")
+        check(nn < NN_TOL, f"small scene ({label}) trajectories differ by {nn}")
 
     # ---- 6. records --------------------------------------------------------
+    check(len(records) == 2 * len(pk.BODIES) + 1, "a kernel has no record")
     say(json.dumps({"kernels": records}))
     say(card)
     say(json.dumps({"ok": True, "device": {

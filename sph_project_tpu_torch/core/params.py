@@ -3,9 +3,13 @@
 The same fields and derivation rules as the JAX package's
 ``sph_project_tpu/core/params.py``, so a scene resolves to identical constants
 (including the ``n_pad`` rule) and states bridge between the two packages row
-for row. The port has one pair engine, so there is no backend resolution here;
-the TPU engine's sizing fields (``pair_*``) are kept only so the two
-parameter sets stay comparable field by field.
+for row. ``pair_backend`` keeps the JAX package's value strings, so the same
+override selects the counterpart engine in both packages (see
+``resolved_pair_backend``); ``pair_block`` sizes the slab-window engine's
+blocks. The TPU engines' other sizing fields (``pair_slab*``, ``pair_chunk``,
+``pair_wtile``, ``pair_dma_*``) are inert here: the port's kernels walk every
+window to its true length. They are kept only so the two parameter sets stay
+comparable field by field.
 
 The fields mirror the scene ``Configuration`` schema of the reference
 (``SPH/containers/base_container.py:10-66`` and
@@ -230,6 +234,22 @@ class SimParams:
     contact_friction: float = 0.5          # Coulomb mu (Bullet's URDF default)
     wall_friction: float = 0.1
     wall_thickness: float = 0.0            # domain_box_thickness (0.03 w/ addDomainBox)
+
+    def resolved_pair_backend(self) -> str:
+        """The pair engine of this parameter set: ``"pallas_dma"`` (also
+        ``"auto"``) is the cell-list kernel, ``"pallas"`` the slab-window
+        kernel, the counterparts of the JAX package's engines of those names.
+        Its chunked-JAX executor (``"jax"``) has no engine here: the plain
+        PyTorch versions run for tensors on the CPU."""
+        if self.pair_backend in ("auto", "pallas_dma"):
+            return "pallas_dma"
+        if self.pair_backend == "pallas":
+            return "pallas"
+        if self.pair_backend == "jax":
+            raise ValueError(
+                'pair_backend="jax" has no counterpart in the port; run the '
+                'plain PyTorch versions with Simulation(..., device="cpu")')
+        raise ValueError(f"unknown pair_backend {self.pair_backend!r}")
 
     @property
     def num_cells(self) -> int:

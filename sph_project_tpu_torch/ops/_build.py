@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root (the hash
-covers the source and the flags, so an edit rebuilds), then loaded with
-``ctypes``. :func:`build_all` starts one ``nvcc`` per source at once.
+covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edit to any of them rebuilds), then loaded with ``ctypes``.
+:func:`build_all` starts one ``nvcc`` per source at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: the pair kernel's
 squared distance and body arithmetic must round like the unfused float32
@@ -23,7 +24,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("pair_pass", "permute")
+SOURCES = ("pair_pass", "pair_slab", "permute")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC)
+                     if h.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -3,7 +3,7 @@
 The JAX package's ``ops/kernels.py``, cubic kernel only, written with the
 same expression order so float32 results agree: Python-float constants are
 folded in double on the host and enter the tensor arithmetic as float32, as
-JAX folds them. The CUDA pair kernel (``csrc/pair_pass.cu``) takes the same
+JAX folds them. The CUDA pair bodies (``csrc/pair_bodies.cuh``) take the same
 folded constants from :func:`cubic_constants`.
 """
 from __future__ import annotations

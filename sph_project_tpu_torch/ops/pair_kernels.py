@@ -1,14 +1,18 @@
-"""The pair passes of the DFSPH main path: plain bodies and the CUDA kernel.
+"""The pair passes of the DFSPH path: plain bodies and the two CUDA kernels.
 
 Each pass is a named body. Its plain version below is written against
 ``pairs.Cx`` as the JAX package writes it against ``ops/pair_exec.Cx`` (the
-JAX source is named beside each body), and ``csrc/pair_pass.cu`` holds the
-same body as a device functor. :func:`run` launches the CUDA kernel for CUDA
-tensors and evaluates the plain body (``pairs.run_plain``) for CPU tensors;
-the CUDA path never falls back to the plain one. Outputs are per row, zero on
-rows that do not produce; vector outputs come back as (N, 3).
+JAX source is named beside each body), and ``csrc/pair_bodies.cuh`` holds the
+same body as a device functor, once for both engines. :func:`run` picks the
+engine from the environment's type, as ``pair_exec.run`` does on the JAX side:
+a ``pairs.SlabEnv`` goes to the slab-window kernel (``csrc/pair_slab.cu``),
+a ``pairs.PairEnv`` to the cell-list kernel (``csrc/pair_pass.cu``). CUDA
+tensors launch the engine's kernel, CPU tensors evaluate the plain body with
+the engine's plain executor; the CUDA path of neither engine ever gives way to
+a plain version. Outputs are per row, zero on rows that do not produce; vector
+outputs come back as (N, 3).
 
-Only bodies of the main path exist: standard viscosity, cubic kernel, no
+Only bodies of the ported path exist: standard viscosity, cubic kernel, no
 dynamic rigid bodies (their wrench outputs are absent).
 """
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 from ..core.params import MATERIAL_FLUID, MATERIAL_RIGID, SimParams
 from . import _build
 from . import kernels
-from .pairs import PairEnv, collect, run_plain
+from .pairs import PairEnv, SlabEnv, collect, run_plain, run_plain_slab
 
 
 def _w(d2, params):
@@ -105,8 +109,9 @@ def divergence_body(cx, params, flags=0):
     return out
 
 
-def correction_body(cx, params, flags=0):
-    """dfsph._correction_outputs :223 (no dynamic-rigid wrench)."""
+def correction_body(cx, params, flags=0, pre=""):
+    """dfsph._correction_outputs :223 (no dynamic-rigid wrench); ``pre``
+    prefixes the output names."""
     eps = params.dfsph_eps * params.dt
     R, d2, mask = cx.geometry()
     gw = _gw(d2, params)
@@ -118,8 +123,16 @@ def correction_body(cx, params, flags=0):
     rigid_j = mask & (mat_j == MATERIAL_RIGID) & (torch.abs(k_i) > eps)
     coef = (cx.where(fluid_j, kr_i + kr_j, 0.0) +
             cx.where(rigid_j, kr_i, 0.0)) * params.density0 * vgw
-    return {f"dv{d}": cx.sum(-coef * R[d], fluid_j | rigid_j)
+    return {f"{pre}dv{d}": cx.sum(-coef * R[d], fluid_j | rigid_j)
             for d in range(cx.dim)}
+
+
+def nonpressure_warm_body(cx, params, flags=0):
+    """dfsph.nonpressure_warm_fused :306: the non-pressure sums and the
+    warm-start correction (outputs ``wdv``) in one pass."""
+    out = nonpressure_body(cx, params)
+    out.update(correction_body(cx, params, pre="w"))
+    return out
 
 
 def density_alpha_divergence_body(cx, params, flags=0):
@@ -153,14 +166,16 @@ def _vec(name):
     return tuple(f"{name}{d}" for d in range(3))
 
 
-# name -> (body id in pair_pass.cu, plain body, output components, fields)
+_NONPRESSURE_FIELDS = ("pos", "vel", "material", "mass", "rest_volume",
+                       "inv_rho")
+
+# name -> (body id in pair_bodies.cuh, plain body, output components, fields)
 BODIES = {
     "density": (0, density_body, ("s",), ("pos", "rest_volume")),
     "alpha": (1, alpha_body, ("sum_sq",) + _vec("vec"),
               ("pos", "rest_volume", "material")),
     "nonpressure": (2, nonpressure_body, _vec("st") + _vec("acc"),
-                    ("pos", "vel", "material", "mass", "rest_volume",
-                     "inv_rho")),
+                    _NONPRESSURE_FIELDS),
     "divergence": (3, divergence_body, ("s", "cnt"),
                    ("pos", "vel", "rest_volume")),
     "correction": (4, correction_body, _vec("dv"),
@@ -170,9 +185,22 @@ BODIES = {
         ("sd", "sum_sq", "sv", "cnt") + _vec("vec"),
         ("pos", "vel", "rest_volume", "material")),
     "rigid_volume": (6, rigid_volume_body, ("s",), ("pos", "object_id")),
+    "nonpressure_warm": (7, nonpressure_warm_body,
+                         _vec("st") + _vec("acc") + _vec("wdv"),
+                         _NONPRESSURE_FIELDS + ("kappa", "k_rho")),
 }
 
-launches = {name: 0 for name in BODIES}
+# engine -> (source in csrc/, its C entry point)
+ENGINES = {"pair_pass": "sph_pair_pass", "pair_slab": "sph_pair_slab"}
+# rows per block the slab-window kernel takes (MAX_BLOCK in pair_slab.cu)
+SLAB_MAX_BLOCK = 512
+
+# kernel launches per engine and body, "pair_pass/<body>" / "pair_slab/<body>"
+launches = {f"{engine}/{name}": 0 for engine in ENGINES for name in BODIES}
+
+
+def engine_of(env: PairEnv) -> str:
+    return "pair_slab" if isinstance(env, SlabEnv) else "pair_pass"
 
 
 def out_names(name: str, flags: int = 0) -> tuple:
@@ -186,13 +214,13 @@ def body_constants(name: str, params: SimParams) -> list:
     """Float constants of the CUDA body, folded in double on the host:
     c[0..3] from kernels.cubic_constants, then the body's own."""
     c = kernels.cubic_constants(params.support_radius, params.dim)
-    if name == "nonpressure":
+    if name in ("nonpressure", "nonpressure_warm"):
         d2c = 2.0 * (params.dim + 2)
         diam = params.particle_diameter
         c += [diam * diam, float(_w_diam(params)),
               0.01 * params.support_radius ** 2, d2c * params.viscosity,
               d2c * params.viscosity_b, params.density0]
-    elif name == "correction":
+    if name in ("correction", "nonpressure_warm"):
         c += [params.dfsph_eps * params.dt, params.density0]
     return c
 
@@ -201,7 +229,7 @@ def body_constants(name: str, params: SimParams) -> list:
 
 _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "object_id", "rest_volume", "mass", "inv_rho", "kappa", "k_rho",
-               "out")
+               "starts", "lens", "rows", "out")
 _DTYPES = {"pos": torch.float32, "vel": torch.float32,
            "material": torch.int32, "object_id": torch.int32,
            "rest_volume": torch.float32, "mass": torch.float32,
@@ -211,14 +239,15 @@ N_CONST = 16
 
 
 class PairArgs(ctypes.Structure):
-    """ctypes mirror of ``struct PairArgs`` in csrc/pair_pass.cu."""
+    """ctypes mirror of ``struct PairArgs`` in csrc/pair_bodies.cuh."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _PTR_FIELDS]
-                + [(k, ctypes.c_int) for k in ("n", "gx", "gy", "gz", "flags")]
+                + [(k, ctypes.c_int)
+                   for k in ("n", "gx", "gy", "gz", "flags", "block")]
                 + [("dh2", ctypes.c_float), ("c", ctypes.c_float * N_CONST)])
 
 
-def _lib():
-    fn = _build.load("pair_pass").sph_pair_pass
+def _lib(engine: str):
+    fn = getattr(_build.load(engine), ENGINES[engine])
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -227,14 +256,21 @@ def _lib():
 def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
              params: SimParams, produce: torch.Tensor | None = None,
              flags: int = 0) -> Dict[str, torch.Tensor]:
-    """Launch the pair kernel for body ``name``; (N,) outputs per component."""
+    """Launch the pair kernel of ``env``'s engine for body ``name``; (N,)
+    outputs per component."""
     body_id, _, _, needs = BODIES[name]
     names = out_names(name, flags)
+    engine = engine_of(env)
     n = env.n
     dev = env.cells.device
     produce = env.produce if produce is None else produce
     if params.dim != 3:
-        raise ValueError("the CUDA pair kernel is 3D only")
+        raise ValueError("the CUDA pair kernels are 3D only")
+    if engine == "pair_slab" and (not 0 < env.block <= SLAB_MAX_BLOCK
+                                  or n % env.block):
+        raise ValueError(
+            f"pair kernel {name}: the slab-window kernel takes blocks of "
+            f"1..{SLAB_MAX_BLOCK} rows that divide {n}, got {env.block}")
     args = PairArgs()
     keep = []
 
@@ -253,8 +289,14 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
             raise ValueError(f"pair kernel {name}: missing field {key}")
         shape = (n, 3) if key in ("pos", "vel") else (n,)
         ptr(key, fields[key], _DTYPES[key], shape)
-    ptr("cells", env.cells, torch.int32, (n,))
-    ptr("cell_start", env.cell_start, torch.int32, (params.num_cells + 1,))
+    if engine == "pair_slab":
+        ptr("starts", env.starts, torch.int32, (n // env.block, 9))
+        ptr("lens", env.lens, torch.int32, (n // env.block, 9))
+        ptr("rows", env.rows, torch.int32, (n,))
+        args.block = env.block
+    else:
+        ptr("cells", env.cells, torch.int32, (n,))
+        ptr("cell_start", env.cell_start, torch.int32, (params.num_cells + 1,))
     ptr("produce", produce, torch.bool, (n,))
     out = torch.empty((len(names), n), dtype=torch.float32, device=dev)
     ptr("out", out, torch.float32, (len(names), n))
@@ -266,28 +308,32 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for k, v in enumerate(consts):
         args.c[k] = v
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(body_id, ctypes.addressof(args), stream)
+    err = _lib(engine)(body_id, ctypes.addressof(args), stream)
     if err != 0:
-        raise RuntimeError(f"pair kernel {name}: launch failed, CUDA error {err}")
-    launches[name] += 1
+        raise RuntimeError(
+            f"{engine} kernel {name}: launch failed, CUDA error {err}")
+    launches[f"{engine}/{name}"] += 1
     return {k: out[r] for r, k in enumerate(names)}
 
 
 def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
                    params: SimParams, produce: torch.Tensor | None = None,
                    flags: int = 0) -> Dict[str, torch.Tensor]:
-    """The plain PyTorch version of body ``name`` (any device)."""
+    """The plain PyTorch version of body ``name`` under ``env``'s engine
+    (any device)."""
     _, body, _, needs = BODIES[name]
-    return run_plain(lambda cx: body(cx, params, flags), env,
-                     {k: fields[k] for k in needs}, out_names(name, flags),
-                     produce=produce)
+    executor = run_plain_slab if isinstance(env, SlabEnv) else run_plain
+    return executor(lambda cx: body(cx, params, flags), env,
+                    {k: fields[k] for k in needs}, out_names(name, flags),
+                    produce=produce)
 
 
 def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
         params: SimParams, produce: torch.Tensor | None = None,
         flags: int = 0) -> Dict[str, torch.Tensor]:
-    """One pair pass: the CUDA kernel for CUDA tensors, the plain body for
-    CPU tensors. Returns per-row outputs, vectors merged to (N, 3)."""
+    """One pair pass under ``env``'s engine: its CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors. Returns per-row outputs,
+    vectors merged to (N, 3)."""
     kind = env.cells.device.type
     if kind == "cuda":
         out = run_cuda(name, env, fields, params, produce, flags)

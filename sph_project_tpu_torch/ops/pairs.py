@@ -1,19 +1,33 @@
-"""The cell-list pair environment and the plain PyTorch pair executor.
+"""The two pair environments and their plain PyTorch pair executors.
 
 A :class:`PairEnv` holds what every pair pass over one sorted layout shares:
 the carried cell ids of the sorted particles, the cell table
 (``neighbors.cell_table``) and the rows whose sums are read (``produce``:
 the fluid rows on the DFSPH main path, as ``sim.produces_output`` on the JAX
-side).
+side). It is the environment of the cell-list engine. A :class:`SlabEnv` adds
+the window table of the slab-window engine (the JAX package's
+``ops/pairs.make_pair_env``): particles go in blocks of ``pair_block``
+consecutive sorted rows, and segment ``s = (dx, dy)`` of a block is one index
+range, the union over the block's rows of the 3 z-cells around each row's
+cell in the (x+dx, y+dy) row of cells. A block that spans several (x, y) rows
+has overlapping windows, so a candidate ``j`` of segment ``s`` counts for row
+``i`` only if ``rows[j] == rows[i] + dx*gy + dy``.
 
-:func:`run_plain` evaluates a pair body written against :class:`Cx` (the
-component API of the JAX package's ``ops/pair_exec.Cx``: ``blk`` is a row's
-own field, ``slab`` a candidate's, ``sum`` the masked reduction over
-candidates) densely over each row's candidates: the 9 (x+-1, y+-1) cell rows,
-each one contiguous z-run of up to 3 cells. Rows go in chunks, so memory
-stays bounded at any size. It is the plain version of the CUDA pair kernel
-(``ops/pair_kernels.py``): the CPU runs it, and on the card it is the
-reference the kernel is checked against, never the main path.
+Not carried over from the JAX slab engine: the pre-gathered slabs
+(``pos_slab``, ``jidx``, ``valid``, ``row_slab``, ``slab_pack``,
+``SlabField``), the static window cap ``pair_slab``, and the second pass over
+outlier blocks with ``pair_slab_big``. They exist because XLA shapes are
+static and TPU gathers are slow. Here a window is read straight from the
+sorted fields and walked to its true length, so nothing is cut, the overflow
+count is 0 by construction and one pass covers the outlier blocks too.
+
+:func:`run_plain` (cell-list) and :func:`run_plain_slab` (slab-window)
+evaluate a pair body written against :class:`Cx` (the component API of the
+JAX package's ``ops/pair_exec.Cx``: ``blk`` is a row's own field, ``slab`` a
+candidate's, ``sum`` the masked reduction over candidates) densely, in chunks,
+so memory stays bounded at any size. They are the plain versions of the CUDA
+pair kernels (``ops/pair_kernels.py``): the CPU runs them, and on the card
+they are the reference a kernel is checked against, never the main path.
 """
 from __future__ import annotations
 
@@ -41,8 +55,25 @@ class PairEnv:
         return self.cells.shape[0]
 
 
+@dataclasses.dataclass
+class SlabEnv(PairEnv):
+    starts: torch.Tensor       # (NB, 9) i32 window start per block and segment
+    lens: torch.Tensor         # (NB, 9) i32 true window length
+    rows: torch.Tensor         # (N,) i32 flat (x, y) row id, cells // gz
+    block: int                 # rows per block (params.pair_block)
+
+    @property
+    def nb(self) -> int:
+        return self.starts.shape[0]
+
+
+# (dx, dy) of segment s = 3 * (dx + 1) + (dy + 1), the order both engines walk
+SEGMENTS = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+
+
 def make_pair_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
                   params: SimParams) -> PairEnv:
+    """The cell-list environment over one sorted layout."""
     from .neighbors import cell_table
     if params.dim != 3:
         raise NotImplementedError("2D scenes are not ported yet "
@@ -80,25 +111,33 @@ def collect(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 class Cx:
-    """One chunk of rows x candidates. ``blk(name)`` is (R, 1), ``slab(name)``
-    is (R, M); ``geometry()`` gives the R components, the squared distance and
-    the pair mask (a real candidate, not the row itself, strictly inside the
-    support radius); ``sum`` reduces over candidates."""
+    """One chunk of rows x candidates. ``rows`` indexes the chunk's rows with
+    a trailing axis of 1, ``cand`` its candidates along the last axis: (R, 1)
+    and (R, M) under the cell-list engine, (C, B, 1) and (C, 1, M) under the
+    slab-window engine, where a block's rows share its candidates. ``blk`` and
+    ``slab`` have those shapes; ``geometry()`` gives the R components, the
+    squared distance and the pair mask (a real candidate, not the row itself,
+    strictly inside the support radius and, under the slab-window engine, of
+    the row of cells its segment stands for: ``row_match``); ``sum`` reduces
+    over candidates."""
 
-    def __init__(self, fields, rows, cand, valid, dh2: float, dim: int):
+    def __init__(self, fields, rows, cand, valid, dh2: float, dim: int,
+                 row_match: torch.Tensor | None = None):
         self._f = fields
         self._rows = rows
         self._cand = cand
         self._valid = valid
+        self._row_match = row_match
         self._dh2 = dh2
         self.dim = dim
         self._bc: dict = {}
         self._sc: dict = {}
+        self._geometry = None
 
     def blk(self, name: str) -> torch.Tensor:
         v = self._bc.get(name)
         if v is None:
-            v = self._bc[name] = self._f[name][self._rows][:, None]
+            v = self._bc[name] = self._f[name][self._rows]
         return v
 
     def slab(self, name: str) -> torch.Tensor:
@@ -114,12 +153,16 @@ class Cx:
         return tuple(self.slab(f"{name}{d}") for d in range(self.dim))
 
     def geometry(self):
-        R = tuple(self.blk(f"pos{d}") - self.slab(f"pos{d}")
-                  for d in range(self.dim))
-        d2 = sum(r * r for r in R)
-        dh2 = torch.tensor(self._dh2, dtype=d2.dtype, device=d2.device)
-        mask = self._valid & (self._cand != self._rows[:, None]) & (d2 < dh2)
-        return R, d2, mask
+        if self._geometry is None:
+            R = tuple(self.blk(f"pos{d}") - self.slab(f"pos{d}")
+                      for d in range(self.dim))
+            d2 = sum(r * r for r in R)
+            dh2 = torch.tensor(self._dh2, dtype=d2.dtype, device=d2.device)
+            mask = self._valid & (self._cand != self._rows) & (d2 < dh2)
+            if self._row_match is not None:
+                mask = mask & self._row_match
+            self._geometry = (R, d2, mask)
+        return self._geometry
 
     @staticmethod
     def sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -130,40 +173,85 @@ class Cx:
         return torch.where(c, a, b)
 
 
-def candidate_ranges(env: PairEnv, rows: torch.Tensor):
-    """(lo, length) of the 9 contiguous candidate runs of each row, (R, 9)."""
+def _cell_xy(cells: torch.Tensor, grid: tuple):
+    gx, gy, gz = grid
+    rest = cells // gz
+    return rest // gy, rest % gy, cells % gz
+
+
+def _ranges(env: PairEnv, rows: torch.Tensor):
+    """(lo, hi, ok), each (R, 9): the index range [lo, hi) of the 3 z-cells
+    around each row's cell in each of the 9 (x+dx, y+dy) rows of cells, and
+    whether that row of cells exists (never for a row with the sentinel id)."""
     gx, gy, gz = env.grid
     c = env.cells[rows].long()
-    z = c % gz
-    rest = c // gz
-    y = rest % gy
-    x = rest // gy
+    x, y, z = _cell_xy(c, env.grid)
+    live = c < gx * gy * gz
     zlo = torch.clamp_min(z - 1, 0)
     zhi = torch.clamp_max(z + 1, gz - 1)
     start = env.cell_start.long()
-    los, lens = [], []
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            xx, yy = x + dx, y + dy
-            ok = (xx >= 0) & (xx < gx) & (yy >= 0) & (yy < gy)
-            row = (xx.clamp(0, gx - 1) * gy + yy.clamp(0, gy - 1)) * gz
-            lo = start[row + zlo]
-            hi = start[row + zhi + 1]
-            los.append(lo)
-            lens.append(torch.where(ok, hi - lo, torch.zeros_like(lo)))
-    return torch.stack(los, 1), torch.stack(lens, 1)
+    los, his, oks = [], [], []
+    for dx, dy in SEGMENTS:
+        xx, yy = x + dx, y + dy
+        oks.append(live & (xx >= 0) & (xx < gx) & (yy >= 0) & (yy < gy))
+        row = (xx.clamp(0, gx - 1) * gy + yy.clamp(0, gy - 1)) * gz
+        los.append(start[row + zlo])
+        his.append(start[row + zhi + 1])
+    return torch.stack(los, 1), torch.stack(his, 1), torch.stack(oks, 1)
+
+
+def candidate_ranges(env: PairEnv, rows: torch.Tensor):
+    """(lo, length) of the 9 contiguous candidate runs of each row, (R, 9)."""
+    lo, hi, ok = _ranges(env, rows)
+    return lo, torch.where(ok, hi - lo, torch.zeros_like(lo))
+
+
+def make_slab_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
+                  params: SimParams) -> SlabEnv:
+    """The slab-window environment over one sorted layout: per block of
+    ``params.pair_block`` rows and per segment, the window [min start, max
+    end) over the block's rows (tensor ops only, no host loop)."""
+    base = make_pair_env(cells_sorted, produce, params)
+    n, B = base.n, params.pair_block
+    if n % B:
+        raise ValueError(f"{n} rows do not divide into blocks of {B}")
+    lo, hi, ok = _ranges(base, torch.arange(n, device=base.cells.device))
+    start = torch.where(ok, lo, torch.full_like(lo, n)).view(n // B, B, -1)
+    end = torch.where(ok, hi, torch.zeros_like(hi)).view(n // B, B, -1)
+    starts = start.amin(1)
+    lens = torch.clamp_min(end.amax(1) - starts, 0)
+    return SlabEnv(
+        **{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
+        starts=starts.to(torch.int32).contiguous(),
+        lens=lens.to(torch.int32).contiguous(),
+        rows=(base.cells // params.grid_num[2]).contiguous(), block=B)
+
+
+def _expand_runs(lo: torch.Tensor, ln: torch.Tensor, m: int):
+    """The indices of each row's 9 runs laid side by side, padded to ``m``
+    columns: (index, segment, is a real candidate), each (R, m)."""
+    cum = torch.cumsum(ln, 1)
+    k = torch.arange(max(m, 1), device=lo.device).expand(lo.shape[0], -1)
+    seg = torch.searchsorted(cum, k.contiguous(), right=True).clamp_max(8)
+    first = (cum - ln).gather(1, seg)
+    cand = lo.gather(1, seg) + (k - first)
+    return cand, seg, k < cum[:, -1:]
+
+
+def _zeros_out(env: PairEnv, out_names) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros(env.n, dtype=torch.float32, device=env.cells.device)
+            for k in out_names}
 
 
 def run_plain(body: Callable, env: PairEnv, fields: Dict[str, torch.Tensor],
               out_names, produce: torch.Tensor | None = None
               ) -> Dict[str, torch.Tensor]:
-    """Evaluate ``body(cx) -> {name: (R,) sums}`` for every produce row; the
-    other rows get zeros. Returns one (N,) tensor per name in ``out_names``."""
-    n = env.n
+    """Evaluate ``body(cx) -> {name: (R,) sums}`` for every produce row over
+    the candidates of its 9 cell-row runs; the other rows get zeros. Returns
+    one (N,) tensor per name in ``out_names``."""
     produce = env.produce if produce is None else produce
     comps = split(fields)
-    dev = env.cells.device
-    out = {k: torch.zeros(n, dtype=torch.float32, device=dev) for k in out_names}
+    out = _zeros_out(env, out_names)
     rows_all = torch.nonzero(produce).flatten()
     if rows_all.numel() == 0:
         return out
@@ -175,16 +263,60 @@ def run_plain(body: Callable, env: PairEnv, fields: Dict[str, torch.Tensor],
         stop = start + step
         m = int(tot_all[start:stop].max())
         rows = rows_all[start:stop]
-        lo, ln = lo_all[start:stop], len_all[start:stop]
-        cum = torch.cumsum(ln, 1)
-        k = torch.arange(max(m, 1), device=dev).expand(rows.numel(), -1)
-        seg = torch.searchsorted(cum, k.contiguous(), right=True).clamp_max(8)
-        first = (cum - ln).gather(1, seg)
-        cand = lo.gather(1, seg) + (k - first)
-        valid = k < cum[:, -1:]
+        cand, _, valid = _expand_runs(lo_all[start:stop], len_all[start:stop], m)
         cand = torch.where(valid, cand, rows[:, None])
-        cx = Cx(comps, rows, cand, valid, env.dh2, 3)
+        cx = Cx(comps, rows[:, None], cand, valid, env.dh2, 3)
         res = body(cx)
         for name in out_names:
             out[name][rows] = res[name].to(torch.float32)
+    return out
+
+
+def run_plain_slab(body: Callable, env: SlabEnv,
+                   fields: Dict[str, torch.Tensor], out_names,
+                   produce: torch.Tensor | None = None
+                   ) -> Dict[str, torch.Tensor]:
+    """:func:`run_plain` for the slab-window engine: every produce row takes,
+    of the candidates of its block's 9 windows, those of the row of cells the
+    segment stands for. Blocks go in chunks of ``PLAIN_CHUNK_ELEMS`` rows x
+    candidates; one block wider than that goes alone, in groups of rows."""
+    produce = env.produce if produce is None else produce
+    comps = split(fields)
+    out = _zeros_out(env, out_names)
+    B, dev = env.block, env.cells.device
+    gx, gy, _ = env.grid
+    blocks_all = torch.nonzero(produce.view(-1, B).any(1)).flatten()
+    widths = env.lens.sum(1)[blocks_all].tolist()
+    k = 0
+    while k < len(widths):
+        m, stop = max(widths[k], 1), k + 1
+        while stop < len(widths) and (stop - k + 1) * B * max(
+                m, widths[stop]) <= PLAIN_CHUNK_ELEMS:
+            m = max(m, widths[stop])
+            stop += 1
+        blocks = blocks_all[k:stop]
+        k = stop
+        cand, seg, valid = _expand_runs(env.starts[blocks].long(),
+                                        env.lens[blocks].long(), m)
+        cand = torch.where(valid, cand, torch.zeros_like(cand))
+        cand_row = env.rows[cand][:, None, :]
+        group = B if len(blocks) > 1 else max(1, min(B, PLAIN_CHUNK_ELEMS // m))
+        for r0 in range(0, B, group):
+            rows = blocks[:, None] * B + torch.arange(
+                r0, min(r0 + group, B), device=dev)              # (C, G)
+            row_id = env.rows[rows].long()
+            x, y = row_id // gy, row_id % gy
+            want = torch.stack(
+                [torch.where((x + dx >= 0) & (x + dx < gx) & (y + dy >= 0)
+                             & (y + dy < gy), row_id + (dx * gy + dy),
+                             torch.full_like(row_id, -1))
+                 for dx, dy in SEGMENTS], -1)
+            want = want.gather(2, seg[:, None, :].expand(-1, rows.shape[1], -1))
+            cx = Cx(comps, rows[:, :, None], cand[:, None, :],
+                    valid[:, None, :], env.dh2, 3, row_match=cand_row == want)
+            res = body(cx)
+            for name in out_names:
+                out[name][rows] = torch.where(
+                    produce[rows], res[name].to(torch.float32),
+                    torch.zeros((), device=dev))
     return out

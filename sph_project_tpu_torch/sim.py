@@ -29,10 +29,18 @@ def _check_ported(params: SimParams) -> None:
 
 
 def permuted_keys(params: SimParams) -> tuple:
-    """Per-particle arrays that carry across the sort (:25)."""
+    """Per-particle arrays that carry across the sort (:25): (fields of the
+    particles, fields of the state itself, the warm-start carries)."""
     keys = ("pos", "vel", "mass", "rest_volume", "density", "material",
             "object_id", "is_dynamic")
-    return keys + ("rigid_rest_pos",) if params.has_rigid else keys
+    if params.has_rigid:
+        keys += ("rigid_rest_pos",)
+    extras = ()
+    if params.dfsph_warm_start:
+        extras += ("dfsph_kappa",)
+    if params.dfsph_warm_start_div:
+        extras += ("dfsph_kappa_v",)
+    return keys, extras
 
 
 def sort_state(state: SimState, params: SimParams):
@@ -43,10 +51,13 @@ def sort_state(state: SimState, params: SimParams):
     active = p.material != MATERIAL_NONE
     cells = nblib.flat_cell_ids(p.pos, active, params)
     perm = nblib.sort_permutation(cells)
-    arrays = {k: getattr(p, k) for k in permuted_keys(params)}
+    keys, extras = permuted_keys(params)
+    arrays = {k: getattr(p, k) for k in keys}
+    arrays.update({k: getattr(state, k) for k in extras})
     arrays["cells"] = cells
     out = permlib.permute_fields(perm, arrays)
     cells_sorted = out.pop("cells")
+    state = state.replace(**{k: out.pop(k) for k in extras})
     return state.replace(particles=p.replace(**out)), cells_sorted, perm
 
 
@@ -60,6 +71,15 @@ def produces_output(p: ParticleState, rigid: RigidState,
     return p.material == MATERIAL_FLUID
 
 
+def build_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
+              params: SimParams) -> pairs.PairEnv:
+    """The pair environment of the scene's engine over one sorted layout
+    (:188)."""
+    if params.resolved_pair_backend() == "pallas":
+        return pairs.make_slab_env(cells_sorted, produce, params)
+    return pairs.make_pair_env(cells_sorted, produce, params)
+
+
 class Plumbing:
     """Shared step stages (:215)."""
 
@@ -69,7 +89,7 @@ class Plumbing:
         environment (:221)."""
         state, cells_sorted, _ = sort_state(state, params)
         produce = produces_output(state.particles, state.rigid, params)
-        return state, pairs.make_pair_env(cells_sorted, produce, params)
+        return state, build_env(cells_sorted, produce, params)
 
     @staticmethod
     def non_pressure_acceleration(p: ParticleState, rigid: RigidState,
@@ -163,7 +183,8 @@ class Simulation:
     ``device`` defaults to ``"cuda"``, where every pair pass and every sort
     runs through the CUDA kernels of ``csrc/``; on a host without CUDA this
     raises instead of carrying on on the CPU. ``device="cpu"`` runs the
-    plain PyTorch versions of the kernels."""
+    plain PyTorch versions of the kernels. ``params.pair_backend`` picks the
+    pair engine on either device (``SimParams.resolved_pair_backend``)."""
 
     def __init__(self, scene, state: SimState, device="cuda"):
         device = torch.device(device)

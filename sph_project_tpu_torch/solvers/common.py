@@ -71,22 +71,32 @@ def _inv_rho(p: ParticleState) -> torch.Tensor:
                              torch.ones_like(p.density))
 
 
-def nonpressure_fused(p: ParticleState, rigid: RigidState, env: PairEnv,
-                      params: SimParams):
-    """Surface tension + standard viscosity in one pair pass (:448, with
-    :380 _nonpressure_outputs and :431 _nonpressure_reduce). Returns
-    (acceleration, rigid force, rigid torque); the wrench is zero without
-    dynamic rigid bodies."""
-    out = pair_kernels.run(
-        "nonpressure", env,
-        {"pos": p.pos, "vel": p.vel, "material": p.material, "mass": p.mass,
-         "rest_volume": p.rest_volume, "inv_rho": _inv_rho(p)}, params)
+def nonpressure_fields(p: ParticleState) -> dict:
+    """The fields the non-pressure pair body reads."""
+    return {"pos": p.pos, "vel": p.vel, "material": p.material,
+            "mass": p.mass, "rest_volume": p.rest_volume,
+            "inv_rho": _inv_rho(p)}
+
+
+def nonpressure_reduce(out: dict, p: ParticleState, rigid: RigidState,
+                       params: SimParams):
+    """The non-pressure sums ``st`` and ``acc`` as (acceleration, rigid force,
+    rigid torque) (:431); the wrench is zero without dynamic rigid bodies."""
     fluid_i = _fluid(p)[:, None]
     a_st = -params.surface_tension / torch.clamp_min(p.mass, 1e-12)[:, None] \
         * out["st"]
     a = torch.where(fluid_i, a_st + out["acc"] / params.density0,
                     torch.zeros_like(p.acc))
     return a, torch.zeros_like(rigid.force), torch.zeros_like(rigid.torque)
+
+
+def nonpressure_fused(p: ParticleState, rigid: RigidState, env: PairEnv,
+                      params: SimParams):
+    """Surface tension + standard viscosity in one pair pass (:448, with
+    :380 _nonpressure_outputs). Returns (acceleration, rigid force, rigid
+    torque)."""
+    out = pair_kernels.run("nonpressure", env, nonpressure_fields(p), params)
+    return nonpressure_reduce(out, p, rigid, params)
 
 
 def update_fluid_velocity(p: ParticleState, params: SimParams) -> ParticleState:

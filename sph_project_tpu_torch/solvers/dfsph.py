@@ -1,11 +1,13 @@
-"""DFSPH, cold path: constant-density and divergence-free correctors.
+"""DFSPH: constant-density and divergence-free correctors, cold and warm.
 
 The JAX package's ``solvers/dfsph.py`` (line numbers below name its
-functions) for the main path: standard viscosity, no dynamic rigid bodies, no
-warm start. The corrector loops keep the JAX loop conditions (at least one
-iteration, then until the error averaged over ALL active particles, walls
-included, is under tolerance or the iteration cap is hit). They are Python
-loops that read the error on the host once per iteration.
+functions) for standard viscosity and no dynamic rigid bodies. The corrector
+loops keep the JAX loop conditions (cold: at least one iteration, then until
+the error averaged over ALL active particles, walls included, is under
+tolerance or the iteration cap is hit; warm: the correction from the carried
+stiffness counts as the first iteration and the loop-entry error is real).
+They are Python loops that read the error on the host once per iteration, and
+once more at loop entry on the warm path.
 """
 from __future__ import annotations
 
@@ -17,9 +19,6 @@ from ..ops import kernels
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
-
-_WARM = ("the DFSPH warm start is not ported yet "
-         "(ROADMAP Queue A.8, DFSPH warm start)")
 
 
 def _alpha_from_sums(sum_sq, vec, p: ParticleState) -> torch.Tensor:
@@ -91,19 +90,80 @@ def compute_density_star(p, vel, env, params) -> torch.Tensor:
                        torch.zeros_like(star))
 
 
+def warm_factor(p: ParticleState, params: SimParams) -> torch.Tensor:
+    """This step's warm-start strength, a scalar or per particle (:191):
+    ``dfsph_warm_factor``, or ``dfsph_warm_factor_hi`` where that is armed
+    and both gates are open: the carried largest fluid density is within
+    ``dfsph_warm_gate`` of rest, and the particle itself moves less than
+    ``dfsph_warm_quiet_cfl`` diameters this step."""
+    wf = torch.tensor(params.dfsph_warm_factor, dtype=torch.float32,
+                      device=p.pos.device)
+    if params.dfsph_warm_factor_hi > 0.0:
+        fluid_i = p.material == MATERIAL_FLUID
+        rho_mx = common.global_max(
+            torch.where(fluid_i, p.density, torch.zeros_like(p.density)),
+            params)
+        quiet_g = rho_mx <= params.dfsph_warm_gate * params.density0
+        v2 = torch.sum(p.vel * p.vel, dim=-1)
+        v_lim = (params.dfsph_warm_quiet_cfl * params.particle_diameter
+                 / params.dt)
+        quiet_i = v2 <= torch.tensor(v_lim * v_lim, dtype=torch.float32,
+                                     device=v2.device)
+        hi = torch.tensor(params.dfsph_warm_factor_hi, dtype=torch.float32,
+                          device=v2.device)
+        wf = torch.where(quiet_g & quiet_i, hi, wf)
+    return wf
+
+
+def _warm_kappa(p: ParticleState, carried: torch.Tensor,
+                params: SimParams) -> torch.Tensor:
+    """The stiffness the warm correction starts from: the carried one scaled
+    by this step's warm factor, clamped at 0, on fluid rows (:387, :461,
+    :507). The factor is evaluated here and nowhere else, once per warm
+    solver and step, on the state that solver starts from."""
+    kappa_w = torch.clamp_min(warm_factor(p, params) * carried, 0.0)
+    return torch.where(p.material == MATERIAL_FLUID, kappa_w,
+                       torch.zeros_like(kappa_w))
+
+
+def _correction_fields(p: ParticleState, kappa: torch.Tensor) -> dict:
+    """The fields the correction pair body reads."""
+    return {"pos": p.pos, "material": p.material,
+            "rest_volume": p.rest_volume, "kappa": kappa,
+            "k_rho": kappa / torch.clamp_min(p.density, 1e-12)}
+
+
+def _correction_reduce(dv: torch.Tensor, p: ParticleState, rigid: RigidState):
+    """The correction sums as (dv on fluid rows, rigid force, rigid torque)
+    (:260); the wrench is zero without dynamic rigid bodies."""
+    fluid_i = p.material == MATERIAL_FLUID
+    dv = torch.where(fluid_i[:, None], dv, torch.zeros_like(dv))
+    return dv, torch.zeros_like(rigid.force), torch.zeros_like(rigid.torque)
+
+
 def _correction(p: ParticleState, rigid: RigidState, kappa: torch.Tensor,
                 env: PairEnv, params: SimParams):
     """Velocity correction of one corrector iteration (:280, with :223
-    _correction_outputs and :260 _correction_reduce). Returns (dv, rigid
-    force, rigid torque); the wrench is zero without dynamic rigid bodies."""
-    k_rho = kappa / torch.clamp_min(p.density, 1e-12)
-    out = pair_kernels.run("correction", env,
-                           {"pos": p.pos, "material": p.material,
-                            "rest_volume": p.rest_volume, "kappa": kappa,
-                            "k_rho": k_rho}, params)
-    fluid_i = p.material == MATERIAL_FLUID
-    dv = torch.where(fluid_i[:, None], out["dv"], torch.zeros_like(out["dv"]))
-    return dv, torch.zeros_like(rigid.force), torch.zeros_like(rigid.torque)
+    _correction_outputs). Returns (dv, rigid force, rigid torque)."""
+    out = pair_kernels.run("correction", env, _correction_fields(p, kappa),
+                           params)
+    return _correction_reduce(out["dv"], p, rigid)
+
+
+def nonpressure_warm_fused(p: ParticleState, rigid: RigidState,
+                           kappa_w: torch.Tensor, env: PairEnv,
+                           params: SimParams):
+    """Surface tension + standard viscosity + the warm-start density
+    correction in one pair pass (:306). The warm correction reads positions,
+    stiffness and density, never velocity, so its sums equal those of a pass
+    of its own. Returns (acceleration, viscous force, viscous torque, dv,
+    warm force, warm torque)."""
+    fields = common.nonpressure_fields(p)
+    fields.update(_correction_fields(p, kappa_w))
+    out = pair_kernels.run("nonpressure_warm", env, fields, params)
+    a, vf, vt = common.nonpressure_reduce(out, p, rigid, params)
+    dv, wf, wt = _correction_reduce(out["wdv"], p, rigid)
+    return a, vf, vt, dv, wf, wt
 
 
 def _avg_over_active(x: torch.Tensor, p: ParticleState,
@@ -116,16 +176,32 @@ def _avg_over_active(x: torch.Tensor, p: ParticleState,
 
 def correct_density_error(p: ParticleState, rigid: RigidState,
                           alpha: torch.Tensor, env: PairEnv,
-                          params: SimParams):
-    """Constant-density solver, cold (:353). Returns (p, rigid, iterations,
-    error) with the error as a float32 tensor."""
+                          params: SimParams, kappa0: torch.Tensor = None,
+                          warm_pre: tuple = None):
+    """Constant-density solver (:353). ``kappa0``: the previous step's
+    accumulated stiffness; the warm path applies one correction from it
+    before the first density probe. ``warm_pre`` = (kappa_w, dv, force,
+    torque): that correction, already computed by an earlier fused pass
+    (:func:`nonpressure_warm_fused`). Returns (p, rigid, iterations, error,
+    accumulated stiffness) with the error as a float32 tensor."""
     fluid_one = (p.material == MATERIAL_FLUID).to(torch.float32)
     vel = p.vel
     rf = torch.zeros_like(rigid.force)
     rt = torch.zeros_like(rigid.torque)
-    star = compute_density_star(p, vel, env, params)
+    kacc = torch.zeros_like(alpha)
     err = torch.tensor(float("inf"), dtype=torch.float32)
     itr = 0
+    if warm_pre is None and kappa0 is not None:
+        kappa_w = _warm_kappa(p, kappa0, params)
+        warm_pre = (kappa_w, *_correction(p, rigid, kappa_w, env, params))
+    if warm_pre is not None:
+        kacc, dv, rf, rt = warm_pre
+        vel = vel + dv
+        itr = 1
+    star = compute_density_star(p, vel, env, params)
+    if warm_pre is not None:
+        # the warm correction may already meet the tolerance
+        err = _avg_over_active(star - fluid_one, p, params)
     while itr < 1 or (float(err) > params.dfsph_max_error
                       and itr < params.dfsph_max_iter):
         kappa = (star - 1.0) * alpha / params.dt
@@ -135,65 +211,102 @@ def correct_density_error(p: ParticleState, rigid: RigidState,
         vel = vel + dv
         star = compute_density_star(p, vel, env, params)
         err = _avg_over_active(star - fluid_one, p, params)
-        rf, rt = rf + f, rt + tq
+        rf, rt, kacc = rf + f, rt + tq, kacc + kappa
         itr += 1
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
-    return p.replace(vel=vel), rigid, itr, err
+    return p.replace(vel=vel), rigid, itr, err, kacc
 
 
 def correct_divergence_error(p: ParticleState, rigid: RigidState,
                              alpha: torch.Tensor, env: PairEnv,
-                             params: SimParams, deriv0: torch.Tensor = None):
-    """Divergence-free solver, cold (:432). ``deriv0``: the initial density
-    derivative when the caller already has it (density_alpha_divergence)."""
+                             params: SimParams, deriv0: torch.Tensor = None,
+                             kappa_v0: torch.Tensor = None):
+    """Divergence-free solver (:432). ``deriv0``: the initial density
+    derivative when the caller already has it (density_alpha_divergence).
+    ``kappa_v0``: the previous step's accumulated divergence stiffness; the
+    warm path applies one correction from it and probes the derivative again
+    before the loop. Returns (p, rigid, iterations, error, accumulated
+    stiffness)."""
     eta = params.dfsph_max_error_v * params.density0 / params.dt
     vel = p.vel
     rf = torch.zeros_like(rigid.force)
     rt = torch.zeros_like(rigid.torque)
-    deriv = deriv0 if deriv0 is not None else \
-        compute_density_derivative(p, vel, env, params)
+    kacc = torch.zeros_like(alpha)
     err = torch.tensor(float("inf"), dtype=torch.float32)
     itr = 0
+    if kappa_v0 is not None:
+        kacc = _warm_kappa(p, kappa_v0, params)
+        dv, rf, rt = _correction(p, rigid, kacc, env, params)
+        vel = vel + dv
+        deriv0 = compute_density_derivative(p, vel, env, params)
+        err = _avg_over_active(params.density0 * deriv0, p, params)
+        itr = 1
+    deriv = deriv0 if deriv0 is not None else \
+        compute_density_derivative(p, vel, env, params)
     while itr < 1 or (float(err) > eta and itr < params.dfsph_max_iter_v):
         kappa_v = deriv * alpha
         dv, f, tq = _correction(p, rigid, kappa_v, env, params)
         vel = vel + dv
         deriv = compute_density_derivative(p, vel, env, params)
         err = _avg_over_active(params.density0 * deriv, p, params)
-        rf, rt = rf + f, rt + tq
+        rf, rt, kacc = rf + f, rt + tq, kacc + kappa_v
         itr += 1
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
-    return p.replace(vel=vel), rigid, itr, err
+    return p.replace(vel=vel), rigid, itr, err, kacc
+
+
+def _nonpressure_and_density_solve(p: ParticleState, rigid: RigidState,
+                                   state: SimState, env: PairEnv,
+                                   params: SimParams, plumbing):
+    """Non-pressure accelerations, the velocity update and the
+    constant-density solve (:499). With the warm start and standard
+    viscosity the warm correction rides the non-pressure pass."""
+    alpha = state.dfsph_alpha
+    if params.dfsph_warm_start and params.viscosity_method == "standard":
+        kappa_w = _warm_kappa(p, state.dfsph_kappa, params)
+        a_np, vf, vt, dv, wf, wt = nonpressure_warm_fused(
+            p, rigid, kappa_w, env, params)
+        rigid = rigid.replace(force=rigid.force + vf, torque=rigid.torque + vt)
+        p = p.replace(acc=common.gravity_acceleration(p, params) + a_np)
+        p = common.update_fluid_velocity(p, params)
+        return correct_density_error(p, rigid, alpha, env, params,
+                                     warm_pre=(kappa_w, dv, wf, wt))
+    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, params)
+    p = common.update_fluid_velocity(p, params)
+    return correct_density_error(
+        p, rigid, alpha, env, params,
+        kappa0=state.dfsph_kappa if params.dfsph_warm_start else None)
 
 
 def step(state: SimState, params: SimParams, plumbing):
     """One DFSPH step (:581). Density, alpha and the pair environment for the
     start of the step come from the end of the previous one (``prepare``
     seeds them)."""
-    if params.dfsph_warm_start or params.dfsph_warm_start_div:
-        raise NotImplementedError(_WARM)
     p, rigid = state.particles, state.rigid
     env0 = state.cached_neighbors
 
-    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env0, params)
-    p = common.update_fluid_velocity(p, params)
-    p, rigid, itr_d, err_d = correct_density_error(
-        p, rigid, state.dfsph_alpha, env0, params)
+    p, rigid, itr_d, err_d, kacc = _nonpressure_and_density_solve(
+        p, rigid, state, env0, params, plumbing)
     p = common.update_fluid_position(p, params)
     p = common.enforce_domain_boundary(p, params, MATERIAL_FLUID)
     state = state.replace(particles=p, rigid=rigid)
+    if params.dfsph_warm_start:
+        state = state.replace(dfsph_kappa=kacc)
 
     state, env = plumbing.neighbor_prep(state, params)
     p = state.particles
     dens, alpha, deriv0 = density_alpha_divergence(p, env, params)
     p = p.replace(density=dens)
-    p, rigid, itr_v, err_v = correct_divergence_error(
-        p, state.rigid, alpha, env, params, deriv0=deriv0)
+    p, rigid, itr_v, err_v, kacc_v = correct_divergence_error(
+        p, state.rigid, alpha, env, params, deriv0=deriv0,
+        kappa_v0=state.dfsph_kappa_v if params.dfsph_warm_start_div else None)
 
     state = state.replace(
         particles=p, rigid=rigid, dfsph_alpha=alpha, cached_neighbors=env,
         t=state.t + params.dt, step_count=state.step_count + 1,
     )
+    if params.dfsph_warm_start_div:
+        state = state.replace(dfsph_kappa_v=kacc_v)
     dev = p.pos.device
     diag = plumbing.diagnostics(state, env, params, extra=dict(
         solver_iters=torch.tensor(itr_d, dtype=torch.int32, device=dev),

@@ -10,15 +10,17 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "sph_project_tpu_torch")
 
-# a fresh interpreter: load a small scene, run one CPU step, then list any
+# a fresh interpreter: load a small scene, run one CPU step (cold under the
+# cell-list engine, or warm under the slab-window engine), then list any
 # module of JAX or of the JAX package that got imported along the way
 _PROBE = """
 import sys
 from sph_project_tpu_torch.scene import load_scene
 from sph_project_tpu_torch.sim import Simulation
 scene, state = load_scene("data/scenes/smoke_test.json",
-                          simulation_method="dfsph")
+                          simulation_method="dfsph", **%r)
 sim = Simulation(scene, state, device="cpu")
+assert type(sim.state.cached_neighbors).__name__ == %r
 diag = sim.step()
 assert int(diag["neighbor_overflow"]) == 0
 bad = sorted(m for m in sys.modules
@@ -27,12 +29,18 @@ print("FOREIGN", bad)
 """
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(overrides={}, env_type="PairEnv"):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c",
+                          _PROBE % (overrides, env_type)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_port_imports_no_jax_warm_slab():
+    test_port_imports_no_jax(dict(pair_backend="pallas", dfsph_warm_start=True,
+                                  dfsph_warm_start_div=True), "SlabEnv")
 
 
 def test_port_sources_name_no_jax():

@@ -2,9 +2,11 @@
 
 The JAX package prepares (sorts) a state; the bridge carries it to the port
 row for row; the port sorts it by its own cell ids (``perm``) and runs the
-plain version of each pair body. Outputs are compared row for row through
-``perm``. Velocities and stiffnesses are made from a seed with numpy so every
-term of every body is non-trivial.
+plain version of each pair body, here under the cell-list engine
+(tests/test_torch_slab.py runs the same checks under the slab-window engine).
+Outputs are compared row for row through ``perm``. Velocities and
+stiffnesses are made from a seed with numpy so every term of every body is
+non-trivial.
 
 Tolerance: max|a - b| <= 2e-5 * max(1, max|b|): float32 sums over <= ~60
 terms in another order. Neighbour counts are compared exactly.
@@ -40,9 +42,10 @@ def assert_pass_close(a, b, what):
 class Setup:
     """A JAX-prepared sorted state and the port's sort of the same rows."""
 
-    def __init__(self, config, **jax_kw):
-        js, jst, ts, _ = load_both(config, pair_block=64, pair_chunk=32,
-                                   **jax_kw)
+    def __init__(self, config, engine="pallas_dma", **jax_kw):
+        js, jst, ts, _ = load_both(
+            config, port_kw=dict(pair_block=64, pair_backend=engine),
+            pair_block=64, pair_chunk=32, **jax_kw)
         self.jparams, self.params = js.params, ts.params
         jstate = jsim.prepare(jst, js.params)
         n = self.params.n_pad
@@ -59,14 +62,13 @@ class Setup:
         flat["particles.vel"] = vel
         tstate = bridge.state_from_numpy(flat, self.params)
         # the JAX env's produce rows are fluid; carry kappa through the sort
-        tstate, cells, self.perm = tsim.sort_state(tstate, self.params)
+        tstate, self.cells, self.perm = tsim.sort_state(tstate, self.params)
         self.perm = self.perm.numpy()
         self.tp = tstate.particles
         self.trigid = tstate.rigid
         self.kappa = torch.from_numpy(kappa[self.perm])
-        self.tenv = tsim.pairs.make_pair_env(
-            cells, tsim.produces_output(self.tp, self.trigid, self.params),
-            self.params)
+        self.produce = tsim.produces_output(self.tp, self.trigid, self.params)
+        self.tenv = tsim.build_env(self.cells, self.produce, self.params)
         self.fluid = self.tp.material.numpy() == 1
 
     def j(self, x):
@@ -124,6 +126,41 @@ def test_correction_pass(box):
     t, _, _ = tdfsph._correction(box.tp, box.trigid, box.kappa, box.tenv,
                                  box.params)
     assert_pass_close(t.numpy(), box.j(j), "correction")
+
+
+def test_nonpressure_warm_pass(box):
+    """The fused non-pressure + warm-correction pass: both the acceleration
+    and the warm dv."""
+    kw = np.where(box.fluid, np.maximum(box.kappa.numpy(), 0.0),
+                  0.0).astype(np.float32)
+    kw_j = np.empty_like(kw)
+    kw_j[box.perm] = kw
+    ja, _, _, jdv, _, _ = jdfsph.nonpressure_warm_fused(
+        box.jp, box.jrigid, kw_j, box.jenv, box.jsl, box.jparams)
+    ta, _, _, tdv, _, _ = tdfsph.nonpressure_warm_fused(
+        box.tp, box.trigid, torch.from_numpy(kw), box.tenv, box.params)
+    assert np.abs(np.asarray(jdv)).max() > 0
+    assert_pass_close(ta.numpy(), box.j(ja), "nonpressure_warm a")
+    assert_pass_close(tdv.numpy(), box.j(jdv), "nonpressure_warm dv")
+
+
+def test_density_solver_warm_from_carried_stiffness(box):
+    """correct_density_error(kappa0=...): the warm path whose correction is a
+    pass of its own (the step takes it when the non-pressure pass cannot carry
+    the correction). Same iterations, velocities and accumulated stiffness."""
+    kj = np.empty_like(box.kappa_np)
+    kj[box.perm] = box.kappa.numpy()
+    ja = jdfsph.compute_alpha(box.jp, box.jenv, box.jsl, box.jparams)
+    jp, _, jitr, jerr, jk = jdfsph.correct_density_error(
+        box.jp, box.jrigid, ja, box.jenv, box.jsl, box.jparams, kappa0=kj)
+    ta = tdfsph.compute_alpha(box.tp, box.tenv, box.params)
+    tp, _, titr, terr, tk = tdfsph.correct_density_error(
+        box.tp, box.trigid, ta, box.tenv, box.params, kappa0=box.kappa)
+    assert titr == int(jitr) >= 1
+    assert np.abs(np.asarray(jk)).max() > 0
+    assert_pass_close(tk.numpy(), box.j(jk), "accumulated stiffness")
+    assert_pass_close(tp.vel.numpy(), box.j(jp.vel), "corrected velocity")
+    assert_pass_close(float(terr), float(jerr), "error")
 
 
 def _check_dad(s, jout):

@@ -43,10 +43,13 @@ def box_config(method="dfsph"):
                          "entryTime": -1.0}]}
 
 
-def load_both(config: dict, **jax_kw):
-    """(jax scene, jax state, torch scene, torch state) of one config."""
+def load_both(config: dict, port_kw: dict | None = None, **jax_kw):
+    """(jax scene, jax state, torch scene, torch state) of one config.
+    ``jax_kw`` are parameter overrides for the JAX loader, ``port_kw`` for
+    the port's."""
     js, jst = jax_load_scene(config=JaxSimConfig(config=config), **jax_kw)
-    ts, tst = torch_load_scene(config=TorchSimConfig(config=config))
+    ts, tst = torch_load_scene(config=TorchSimConfig(config=config),
+                               **(port_kw or {}))
     return js, jst, ts, tst
 
 

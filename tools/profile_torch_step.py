@@ -12,6 +12,10 @@ agree) and device time grouped by kernel family and by kernel name. Ends with
 one JSON line of the same numbers.
 
     python3 tools/profile_torch_step.py [--scene FILE]
+        [--pair-backend auto|pallas_dma|pallas] [--warm]
+
+``--pair-backend pallas`` profiles the slab-window pair engine instead of the
+cell-list engine, ``--warm`` turns both DFSPH warm starts on.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FAMILIES = (("pair_kernel", "pair pass (csrc/pair_pass.cu)"),
+            ("slab_kernel", "pair pass, slab-window (csrc/pair_slab.cu)"),
             ("permute_kernel", "permute (csrc/permute.cu)"),
             ("sort", "torch.sort"), ("radix", "torch.sort"),
             ("searchsorted", "cell table (searchsorted)"))
@@ -59,6 +64,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", default=os.path.join(
         ROOT, "data", "scenes", "large_scale_dfsph.json"))
+    ap.add_argument("--pair-backend", default="auto",
+                    choices=("auto", "pallas_dma", "pallas"))
+    ap.add_argument("--warm", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -72,7 +80,9 @@ def main() -> int:
                            "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    scene, state = load_scene(args.scene)
+    scene, state = load_scene(args.scene, pair_backend=args.pair_backend,
+                              dfsph_warm_start=args.warm,
+                              dfsph_warm_start_div=args.warm)
     sim = Simulation(scene, state)
     for _ in range(WARMUP):
         sim.step()
@@ -116,7 +126,9 @@ def main() -> int:
         f[1] += t
     steps = STEPS
     print(f"card: {card}; scene {os.path.basename(args.scene)}, "
-          f"{scene.params.n_particles} particles; {steps} steps profiled")
+          f"{scene.params.n_particles} particles, pair_backend "
+          f"{args.pair_backend}, warm start {args.warm}; {steps} steps "
+          f"profiled")
     print(f"per step: wall {wall_us / steps / 1e3:.3f} ms (under the "
           f"profiler {prof_wall_us / steps / 1e3:.3f} ms), device busy "
           f"{busy_us / steps / 1e3:.3f} ms, idle share "
@@ -132,7 +144,8 @@ def main() -> int:
     for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
         print(f"  {t / steps / 1e3:8.3f} ms  {n / steps:6.1f}x  {name[:100]}")
     print(json.dumps({
-        "card": card, "steps": steps, "iters": iters,
+        "card": card, "pair_backend": args.pair_backend, "warm": args.warm,
+        "steps": steps, "iters": iters,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "profiled_wall_ms_per_step": prof_wall_us / steps / 1e3,
         "busy_ms_per_step": busy_us / steps / 1e3,
