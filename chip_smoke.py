@@ -29,7 +29,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the permutation of the next step's sort with the cold path's fields and
    with the warm path's. Prints the error, the kernel's, the plain version's
    and (for the gather) ``index_select``'s time, the least time the card could
-   take, and the window statistics of the slab-window engine;
+   take (``bound_ms``) and the least this method could take
+   (``issue_floor_ms``), the candidates each engine tests per pair it keeps
+   (counted from that engine's own table), and the window statistics of the
+   slab-window engine. Then the pile-up check: a synthetic state whose rows
+   have about 250 neighbours, far more than a list of the kernels' walk
+   holds, in runs that cross several staged tiles, through both kernels
+   against their plain versions;
 5. the small domain-box scene for ``SMALL_STEPS`` steps on the CPU (plain
    versions) and on the card (kernels), cold through the cell-list engine,
    warm through it, and warm through the slab-window engine: equal iteration
@@ -81,6 +87,17 @@ OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
                 "divergence": 24, "correction": 28,
                 "density_alpha_divergence": 60, "rigid_volume": 15,
                 "nonpressure_warm": 71}
+# what the method needs at the least, beside the card's bound: every candidate
+# a row tests costs 12 instructions (3 loads, 3 subtractions, 3
+# multiplications, 2 additions, 1 compare; the loop, the j != i compare and
+# the append are not counted), every pair inside the radius the geometry and
+# the body's operations again, one instruction each at the least. The card
+# starts one instruction per cycle from each of its 4 schedulers per
+# multiprocessor to a warp of 32 rows, at the highest clock ``nvidia-smi``
+# reports.
+TEST_INSTR = 12
+SCHEDULERS_PER_SM = 4
+PILE_UP_BODIES = ("density_alpha_divergence", "nonpressure_warm")
 ENGINES = {
     "pair_pass": ("sph_project_tpu_torch/csrc/pair_pass.cu",
                   "sph_project_tpu/ops/pair_dma.py:574"),
@@ -126,6 +143,17 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def instruction_rate() -> float:
+    """Instructions per second the card can start, counted per row (thread):
+    multiprocessors x schedulers x 32 lanes x the highest SM clock."""
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    hz = float(out.stdout.strip()) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SCHEDULERS_PER_SM * 32 * hz
 
 
 def nbytes(tensors) -> int:
@@ -206,6 +234,7 @@ def main() -> int:
             f"{sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         step_ms = []
         for s in range(steps):
+            before = dict(pk.launches)
             t0 = time.perf_counter()
             d = sim.step()
             torch.cuda.synchronize()
@@ -228,8 +257,10 @@ def main() -> int:
             check(row["fluid_num"] == n_fluid, f"step {s}: fluid count")
         torch.cuda.synchronize()
         launches = dict(pk.launches)
+        last_step = {k: v - before[k] for k, v in launches.items()}
         launches["permute"] = permlib.launches["permute"]
-        say(f"[3] {label}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        say(f"[3] {label}: launches {json.dumps({k: v for k, v in launches.items() if v})}"
+            f"; in the last step {json.dumps({k: v for k, v in last_step.items() if v})}")
         engine = pk.engine_of(sim.state.cached_neighbors)
         check(engine == ("pair_slab" if overrides.get("pair_backend")
                          == "pallas" else "pair_pass"), f"{label}: engine")
@@ -251,12 +282,15 @@ def main() -> int:
                 f"{k_max:.3e}, max |kappa_v| {kv_max:.3e}): the warm path's "
                 f"kernels and carries run, its saving of iterations does not "
                 f"show here")
-        return sim, launches
+        return sim, launches, last_step
 
-    sims, path_launches = [], []
+    sims, path_launches, step_launches = [], [], {}
     for label, overrides, steps in PATHS:
-        sim, launches = drive(label, overrides, steps)
+        sim, launches, last_step = drive(label, overrides, steps)
         path_launches.append(launches)
+        # pair launches of one free-fall step, by engine and cold or warm
+        step_launches[(pk.engine_of(sim.state.cached_neighbors),
+                       "warm" if sim.params.dfsph_warm_start else "cold")] = last_step
         # the two short runs only count launches
         sims.append(sim if len(sims) < 2 else None)
         del sim
@@ -291,13 +325,12 @@ def main() -> int:
         rigid_rows = p.material == MATERIAL_RIGID
 
         def work(produce):
-            """(candidates tested, pairs inside the radius) over these rows."""
-            if slab:
-                rows_in_block = produce.view(-1, env.block).sum(1)
-                cand = int((rows_in_block * env.lens.sum(1)).sum())
-            else:
-                rows = torch.nonzero(produce).flatten()
-                cand = int(pairs.candidate_ranges(env, rows)[1].sum())
+            """(candidates tested, pairs inside the radius) over these rows,
+            the candidates counted from the engine's own table: a row's 9
+            runs of the cell table, or its 9 pieces of its block's windows."""
+            rows = torch.nonzero(produce).flatten()
+            ranges = pairs.window_pieces if slab else pairs.candidate_ranges
+            cand = int(ranges(env, rows)[1].sum())
             cnt = pk.run_cuda("divergence", env, fields, params, produce,
                               flags=1)["cnt"]
             return cand, int(cnt.sum().item())
@@ -307,7 +340,7 @@ def main() -> int:
             say(f"[4] {engine}, {k} rows: {cand} candidates tested, {npairs} "
                 f"pairs inside the radius ({cand / max(npairs, 1):.2f} "
                 f"candidates per pair)")
-        table = ((env.starts, env.lens, env.rows) if slab
+        table = ((env.starts, env.lens, env.cells) if slab
                  else (env.cells, env.cell_start))
         if slab:
             width = env.lens.sum(1)[env.produce.view(-1, env.block).any(1)]
@@ -315,8 +348,9 @@ def main() -> int:
                 f"{width.numel()} with fluid rows; candidates in a fluid "
                 f"block's 9 windows: median {int(width.median())}, widest "
                 f"{int(width.max())}; widest single window "
-                f"{int(env.lens.max())}; the plain version runs over all "
-                f"blocks for every body")
+                f"{int(env.lens.max())} (what a block stages; a row tests "
+                f"only its piece); the plain version runs over all blocks "
+                f"for every body")
         for name, (_, _, _, needs) in pk.BODIES.items():
             flags = 1 if name == "divergence" else 0
             produce = rigid_rows if name == "rigid_volume" else None
@@ -342,24 +376,32 @@ def main() -> int:
             # above was its warm-up
             plain_ms = cuda_ms(plain, 1, warm_up=False) if slab \
                 else cuda_ms(plain, 2)
-            _, npairs = work_of["rigid" if produce is not None else "fluid"]
+            tests, npairs = work_of["rigid" if produce is not None
+                                    else "fluid"]
             n_bytes = (nbytes(fk.values()) + nbytes(table) + n * 1
                        + len(out_k) * n * 4)
             n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
             b_ms, b_by = bound_ms(n_bytes, n_ops)
+            floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
             say(f"[4] {engine}/{name}: max_abs_err {err:.3e}, kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop)")
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+                f"{n_ops / 1e9:.3f} Gop), instruction floor {floor_ms:.4f} ms")
             records.append(dict(
                 name=f"{engine}/{name}", route="cuda",
                 source=ENGINES[engine][0], replaces=ENGINES[engine][1],
                 launches=total_launches[f"{engine}/{name}"],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None))
+                bound_by=b_by, library_ms=None,
+                issue_floor_ms=floor_ms, tests_per_pair=tests / max(npairs, 1),
+                launches_cold_step=step_launches[engine, "cold"][
+                    f"{engine}/{name}"],
+                launches_warm_step=step_launches[engine, "warm"][
+                    f"{engine}/{name}"]))
         if slab:
-            # the two kernels on one state: same candidates accepted in the
-            # same order for a row, except a pair two z-cells apart by
-            # rounding, which only the window walk can see
+            # the two kernels on one state: a row tests the same candidates
+            # in the same order under both and adds what it keeps in that
+            # order, so the sums are equal bit for bit
             cell_env = pairs.make_pair_env(env.cells, env.produce, params)
             for name, (_, _, _, needs) in pk.BODIES.items():
                 flags = 1 if name == "divergence" else 0
@@ -372,8 +414,44 @@ def main() -> int:
                 say(f"[4] pair_slab vs pair_pass, {name}: largest difference "
                     f"{diff:.3e} (largest sum {scale:.3e})"
                     f"{', bit-equal' if diff == 0.0 else ''}")
-                check(diff <= TOL * max(1.0, scale),
-                      f"the two pair kernels differ on {name}: {diff}")
+                check(diff == 0.0,
+                      f"the two pair kernels are not bit-equal on {name}: "
+                      f"{diff}")
+
+    def check_pile_up():
+        """Both kernels on the pile-up state against their plain versions,
+        neighbour counts exact: lists that fill and flush many times per
+        row, runs that cross several staged tiles, empty cells, edge and
+        corner cells and a sentinel tail."""
+        params, cells, produce, fields = pk.pile_up_case()
+        cells, produce = cells.cuda(), produce.cuda()
+        fields = {k: v.cuda() for k, v in fields.items()}
+        for engine, make in (("pair_pass", pairs.make_pair_env),
+                             ("pair_slab", pairs.make_slab_env)):
+            env = make(cells, produce, params)
+            longest = int(pairs.candidate_ranges(
+                env, torch.nonzero(produce).flatten())[1].max())
+            for name in PILE_UP_BODIES:
+                fk = {k: fields[k] for k in pk.BODIES[name][3]}
+                out_p = pk.run_plain_body(name, env, fk, params)
+                if "cnt" in out_p:
+                    most = int(out_p["cnt"].max())
+                out_k = pk.run_cuda(name, env, fk, params)
+                torch.cuda.synchronize()
+                err = 0.0
+                for c in out_k:
+                    e = float((out_k[c] - out_p[c]).abs().max())
+                    err = max(err, e)
+                    if c == "cnt":
+                        check(e == 0.0, f"pile-up, {engine}/{name}: "
+                              f"neighbour counts differ")
+                    lim = TOL * max(1.0, float(out_p[c].abs().max()))
+                    check(e <= lim, f"pile-up, {engine}/{name}.{c}: max "
+                          f"error {e} > {lim}")
+                say(f"[4] pile-up, {engine}/{name}: {int(produce.sum())} "
+                    f"rows, most neighbours of a row {most}, longest run of "
+                    f"candidates {longest}, max_abs_err {err:.3e}, counts "
+                    f"exact")
 
     def check_permute(sim):
         """The fused gather on the next step's sort of ``sim``'s state:
@@ -413,6 +491,13 @@ def main() -> int:
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
+    instr_per_s = instruction_rate()
+    say(f"[4] instruction rate {instr_per_s:.4e} per second and row "
+        f"({torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"multiprocessors x {SCHEDULERS_PER_SM} schedulers x 32 lanes x the "
+        f"highest SM clock); a candidate tested counts {TEST_INSTR}, a pair "
+        f"kept the operations of the bound")
+    check_pile_up()
     cold_sim, slab_sim = sims[0], sims[1]
     check_engine(cold_sim)
     check_engine(slab_sim)

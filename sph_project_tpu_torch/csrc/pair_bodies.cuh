@@ -38,7 +38,7 @@ enum Body {
 struct PairArgs {
   const float* pos;          // (n, 3)
   const float* vel;          // (n, 3)
-  const int* cells;          // (n,) sorted flat cell ids       [cell-list]
+  const int* cells;          // (n,) sorted flat cell ids
   const int* cell_start;     // (gx*gy*gz + 1,)                 [cell-list]
   const uint8_t* produce;    // (n,) rows whose sums are read
   const int* material;       // (n,)
@@ -50,7 +50,6 @@ struct PairArgs {
   const float* k_rho;        // (n,)
   const int* starts;         // (n / block, 9) window starts    [slab]
   const int* lens;           // (n / block, 9) window lengths   [slab]
-  const int* rows;           // (n,) flat (x, y) row ids        [slab]
   float* out;                // (n_out, n)
   int n, gx, gy, gz;
   int flags;                 // divergence: bit 0 = also count neighbours
@@ -227,20 +226,19 @@ struct RigidVolume {  // same-object W sum (common.compute_rigid_volume_fixedk)
   }
 };
 
-// Runs Launch<Body>::run(a, outputs written, stream) for body id `body`, then
-// returns cudaGetLastError() (0 = launched). Each engine gives its own Launch.
+// Runs Launch<Body>::run(a, outputs written, stream) for body id `body` and
+// returns its CUDA error code (0 = launched). Each engine gives its own Launch.
 template <template <class> class Launch>
 static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
   switch (body) {
-    case BODY_DENSITY: Launch<Density>::run(a, 1, s); break;
-    case BODY_ALPHA: Launch<Alpha>::run(a, 4, s); break;
-    case BODY_NONPRESSURE: Launch<Nonpressure>::run(a, 6, s); break;
-    case BODY_DIVERGENCE: Launch<Divergence>::run(a, (a.flags & 1) ? 2 : 1, s); break;
-    case BODY_CORRECTION: Launch<Correction>::run(a, 3, s); break;
-    case BODY_DENSITY_ALPHA_DIVERGENCE: Launch<DensityAlphaDivergence>::run(a, 7, s); break;
-    case BODY_RIGID_VOLUME: Launch<RigidVolume>::run(a, 1, s); break;
-    case BODY_NONPRESSURE_WARM: Launch<NonpressureWarm>::run(a, 9, s); break;
+    case BODY_DENSITY: return Launch<Density>::run(a, 1, s);
+    case BODY_ALPHA: return Launch<Alpha>::run(a, 4, s);
+    case BODY_NONPRESSURE: return Launch<Nonpressure>::run(a, 6, s);
+    case BODY_DIVERGENCE: return Launch<Divergence>::run(a, (a.flags & 1) ? 2 : 1, s);
+    case BODY_CORRECTION: return Launch<Correction>::run(a, 3, s);
+    case BODY_DENSITY_ALPHA_DIVERGENCE: return Launch<DensityAlphaDivergence>::run(a, 7, s);
+    case BODY_RIGID_VOLUME: return Launch<RigidVolume>::run(a, 1, s);
+    case BODY_NONPRESSURE_WARM: return Launch<NonpressureWarm>::run(a, 9, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

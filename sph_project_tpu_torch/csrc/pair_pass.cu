@@ -1,84 +1,103 @@
 // Cell-list pair pass: for every particle row i whose sums are read
 // (produce[i] != 0), the masked sums of one SPH pair body over all j with
 // |x_i - x_j|^2 < h^2 and j != i. One template kernel over the device bodies
-// of pair_bodies.cuh.
+// of pair_bodies.cuh, around the compacted walk of pair_walk.cuh.
 //
 // Replaces the TPU kernel sph_project_tpu/ops/pair_dma.py `_kernel` /
 // `_kernel_body` (launched by `run`). That kernel DMA'd plane-padded union
 // windows of a packed field matrix into VMEM under fixed caps and counted
-// what the caps lost. This one reads straight from device memory through the
-// cell table: particles are sorted by flat cell id (x*gy + y)*gz + z, so each
-// of the 9 (x+-1, y+-1) neighbour rows is one contiguous index range
+// what the caps lost. This one reads through the cell table: particles are
+// sorted by flat cell id (x*gy + y)*gz + z, so each of the 9 (x+-1, y+-1)
+// neighbour rows of cells is one contiguous index range
 // [cell_start[row+z-1], cell_start[row+z+1+1]), clamped to the grid. There
 // are no caps, so nothing is lost.
 //
-// Bound: on this card the pass is bound by the candidate loop, not by
-// compulsory bytes: each row tests ~200 candidates (27 cells of ~8 particles)
-// to keep ~30, and every candidate costs a position load and a distance
-// test. The compulsory traffic (each field read once, each output written
-// once) is tens of MB per pass. Design, first version: one thread per row,
-// sums in registers, outputs written once; neighbouring rows are neighbours
-// in space, so a warp's candidate loads mostly hit L1/L2. Staging cell rows
-// in shared memory and a warp per row are later work.
+// Bound: not the compulsory bytes (each field read once, each output written
+// once: tens of MB, 0.02-0.05 ms) but instruction throughput. A row tests about 7
+// candidates for every neighbour it keeps, a dozen instructions each, and
+// runs the body (IEEE sqrt and divisions, no fused multiply-add) on what it
+// keeps; chip_smoke.py computes that floor per body (`issue_floor_ms`).
+//
+// Design: one thread per row, one warp per 32 consecutive sorted rows. Those
+// rows lie in a few neighbouring cells of one column, so per segment (dx, dy)
+// the union of their runs is one short index range: the warp finds it with
+// two warp reductions, stages its positions in shared memory with coalesced
+// cp.async copies and each lane tests its own run from there (lanes of one
+// cell read the same words). Accepted candidates go to per-row lists and the
+// body runs on dense warps (pair_walk.cuh). A warp none of whose rows produce
+// writes zeros before it loads anything. Warps never wait for each other.
+//
+// No tensor cores: the work has no matrix product. A Gram-matrix distance
+// (-2 x_i.x_j through wgmma, TF32 or split float32) rounds differently from
+// (R0*R0 + R1*R1) + R2*R2 and moves lattice pairs at exactly |R| = h across
+// the test, which changes neighbour counts and with them the solver's
+// iteration counts.
+
+#include <limits.h>
 
 #include "pair_bodies.cuh"
+#include "pair_walk.cuh"
+
+#define PASS_THREADS 128
+#define PASS_WARPS (PASS_THREADS / 32)
+#define PASS_STAGE_CAP 64  // candidates a warp stages per tile
+// a tile per warp, then the rows' lists
+#define PASS_SHARED \
+  (sizeof(float4) * PASS_WARPS * PASS_STAGE_CAP + sizeof(int) * LIST_CAP * PASS_THREADS)
 
 // The arguments stay in the constant parameter space (__grid_constant__):
 // the bodies take them by reference, which would otherwise copy the struct
 // into every thread's local memory.
 template <class B>
-__global__ void __launch_bounds__(128) pair_kernel(const __grid_constant__ PairArgs a,
-                                                   int n_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  float acc[B::NOUT];
-#pragma unroll
-  for (int k = 0; k < B::NOUT; ++k) acc[k] = 0.0f;
-  if (a.produce[i]) {
-    B body;
-    body.load(a, i);
-    const float x0 = a.pos[3 * i], x1 = a.pos[3 * i + 1], x2 = a.pos[3 * i + 2];
-    const int cell = a.cells[i];
+__global__ void __launch_bounds__(PASS_THREADS) pair_kernel(const __grid_constant__ PairArgs a,
+                                                            int n_out) {
+  extern __shared__ __align__(16) float smem[];
+  // per warp one tile of positions, then the rows' lists (LIST_CAP, T)
+  float4* spos = reinterpret_cast<float4*>(smem) + (threadIdx.x >> 5) * PASS_STAGE_CAP;
+  int* lists = reinterpret_cast<int*>(reinterpret_cast<float4*>(smem) + PASS_WARPS * PASS_STAGE_CAP);
+  const int i = blockIdx.x * PASS_THREADS + threadIdx.x;
+  const int num_cells = a.gx * a.gy * a.gz;
+  int cell = num_cells;
+  if (i < a.n && a.produce[i]) cell = a.cells[i];
+  const bool mine = cell < num_cells;
+  Row<B> r;
+  r.init(a, i, mine, lists + threadIdx.x, PASS_THREADS);
+  if (__any_sync(FULL_MASK, mine)) {
+    const WarpGroup g{(int)(threadIdx.x & 31)};
     const int cz = cell % a.gz;
     const int rest = cell / a.gz;
     const int cy = rest % a.gy;
     const int cx = rest / a.gy;
     const int zlo = max(cz - 1, 0), zhi = min(cz + 1, a.gz - 1);
-    const int xlo = max(cx - 1, 0), xhi = min(cx + 1, a.gx - 1);
-    const int ylo = max(cy - 1, 0), yhi = min(cy + 1, a.gy - 1);
-    for (int x = xlo; x <= xhi; ++x) {
-      for (int y = ylo; y <= yhi; ++y) {
+    for (int s = 0; s < NSEG; ++s) {
+      // the row's run in the cell table ...
+      const int x = cx + s / 3 - 1, y = cy + s % 3 - 1;
+      int lo = 0, hi = 0;
+      if (mine && x >= 0 && x < a.gx && y >= 0 && y < a.gy) {
         const int row = (x * a.gy + y) * a.gz;
-        const int js = a.cell_start[row + zlo];
-        const int je = a.cell_start[row + zhi + 1];
-        for (int j = js; j < je; ++j) {
-          if (j == i) continue;
-          float R[3];
-          R[0] = x0 - a.pos[3 * j];
-          R[1] = x1 - a.pos[3 * j + 1];
-          R[2] = x2 - a.pos[3 * j + 2];
-          const float d2 = R[0] * R[0] + R[1] * R[1] + R[2] * R[2];
-          if (!(d2 < a.dh2)) continue;
-          body.pair(a, j, R, d2, acc);
-        }
+        lo = a.cell_start[row + zlo];
+        hi = a.cell_start[row + zhi + 1];
       }
+      // ... and the warp's window: from the least start to the greatest end
+      const int ws = __reduce_min_sync(FULL_MASK, lo < hi ? lo : INT_MAX);
+      const int we = __reduce_max_sync(FULL_MASK, lo < hi ? hi : 0);
+      walk_window(r, a, g, spos, PASS_STAGE_CAP, ws, we, lo, hi);
     }
+    r.flush(a);
   }
-#pragma unroll
-  for (int k = 0; k < B::NOUT; ++k)
-    if (k < n_out) a.out[(size_t)k * a.n + i] = acc[k];
+  if (i < a.n) store_row(r, a, n_out);
 }
 
 template <class B>
 struct Launch {
-  static void run(const PairArgs& a, int n_out, cudaStream_t s) {
-    const int threads = 128;
-    const int blocks = (a.n + threads - 1) / threads;
-    pair_kernel<B><<<blocks, threads, 0, s>>>(a, n_out);
+  static int run(const PairArgs& a, int n_out, cudaStream_t s) {
+    const int blocks = (a.n + PASS_THREADS - 1) / PASS_THREADS;
+    pair_kernel<B><<<blocks, PASS_THREADS, PASS_SHARED, s>>>(a, n_out);
+    return (int)cudaGetLastError();
   }
 };
 
-// Launches one pass; returns cudaGetLastError() (0 = launched).
+// Launches one pass; returns the CUDA error code (0 = launched).
 extern "C" int sph_pair_pass(int body, const PairArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   return launch_body<Launch>(body, *a, (cudaStream_t)stream);

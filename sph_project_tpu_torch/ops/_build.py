@@ -11,6 +11,7 @@ squared distance and body arithmetic must round like the unfused float32
 tensor ops of the plain versions (a contracted multiply-add moves lattice
 pairs at exactly the support radius across the ``d2 < h^2`` test). Never
 ``--use_fast_math``: the cubic kernel relies on IEEE division and sqrt.
+The flags are fixed here: nothing in the environment changes what is built.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 Each pass is a named body. Its plain version below is written against
 ``pairs.Cx`` as the JAX package writes it against ``ops/pair_exec.Cx`` (the
 JAX source is named beside each body), and ``csrc/pair_bodies.cuh`` holds the
-same body as a device functor, once for both engines. :func:`run` picks the
+same body as a device functor, once for both engines, which also share their
+candidate walk (``csrc/pair_walk.cuh``). :func:`run` picks the
 engine from the environment's type, as ``pair_exec.run`` does on the JAX side:
 a ``pairs.SlabEnv`` goes to the slab-window kernel (``csrc/pair_slab.cu``),
 a ``pairs.PairEnv`` to the cell-list kernel (``csrc/pair_pass.cu``). CUDA
@@ -22,9 +23,11 @@ from typing import Dict
 
 import torch
 
-from ..core.params import MATERIAL_FLUID, MATERIAL_RIGID, SimParams
+from ..core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
+                           SimParams, make_params)
 from . import _build
 from . import kernels
+from . import neighbors
 from .pairs import PairEnv, SlabEnv, collect, run_plain, run_plain_slab
 
 
@@ -229,7 +232,7 @@ def body_constants(name: str, params: SimParams) -> list:
 
 _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "object_id", "rest_volume", "mass", "inv_rho", "kappa", "k_rho",
-               "starts", "lens", "rows", "out")
+               "starts", "lens", "out")
 _DTYPES = {"pos": torch.float32, "vel": torch.float32,
            "material": torch.int32, "object_id": torch.int32,
            "rest_volume": torch.float32, "mass": torch.float32,
@@ -267,10 +270,11 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     if params.dim != 3:
         raise ValueError("the CUDA pair kernels are 3D only")
     if engine == "pair_slab" and (not 0 < env.block <= SLAB_MAX_BLOCK
-                                  or n % env.block):
+                                  or env.block % 32 or n % env.block):
         raise ValueError(
             f"pair kernel {name}: the slab-window kernel takes blocks of "
-            f"1..{SLAB_MAX_BLOCK} rows that divide {n}, got {env.block}")
+            f"32..{SLAB_MAX_BLOCK} rows, whole warps, that divide {n}, got "
+            f"{env.block}")
     args = PairArgs()
     keep = []
 
@@ -289,13 +293,12 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
             raise ValueError(f"pair kernel {name}: missing field {key}")
         shape = (n, 3) if key in ("pos", "vel") else (n,)
         ptr(key, fields[key], _DTYPES[key], shape)
+    ptr("cells", env.cells, torch.int32, (n,))
     if engine == "pair_slab":
         ptr("starts", env.starts, torch.int32, (n // env.block, 9))
         ptr("lens", env.lens, torch.int32, (n // env.block, 9))
-        ptr("rows", env.rows, torch.int32, (n,))
         args.block = env.block
     else:
-        ptr("cells", env.cells, torch.int32, (n,))
         ptr("cell_start", env.cell_start, torch.int32, (params.num_cells + 1,))
     ptr("produce", produce, torch.bool, (n,))
     out = torch.empty((len(names), n), dtype=torch.float32, device=dev)
@@ -326,6 +329,59 @@ def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     return executor(lambda cx: body(cx, params, flags), env,
                     {k: fields[k] for k in needs}, out_names(name, flags),
                     produce=produce)
+
+
+def pile_up_case(pair_block: int = 256, seed: int = 0):
+    """A synthetic sorted state that overfills any short neighbour list:
+    ``(params, cells, produce, fields)`` on the CPU, fields as :func:`run`
+    takes them, with the ``density`` that ``inv_rho`` and ``k_rho`` were made
+    from beside them.
+
+    A 12x12x12 lattice of spacing h/4 fills the 3x3x3 cells at the grid's
+    origin corner, so its inner rows have about 250 neighbours and a row's
+    run of candidates (three cells of 64) crosses several of the tiles either
+    kernel stages; a few particles sit in the opposite corner cell, in an
+    edge cell and alone among empty cells. A fifth of the rows are rigid, the
+    rest fluid (the rows that produce), and the tail up to ``n_pad`` is
+    ``MATERIAL_NONE`` rows with the sentinel cell id."""
+    h = 0.04
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, dtype=torch.float32)
+
+    params = make_params(12 ** 3 + 66, particle_radius=h / 4, support_radius=h,
+                         domain_end=(6 * h, 5 * h, 7 * h),
+                         pair_block=pair_block, has_dynamic_rigid=False)
+    gx, gy, gz = params.grid_num
+    k = torch.arange(12, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(k, k, k, indexing="ij"), -1)
+    lattice = (lattice.reshape(-1, 3) + 0.5) * (h / 4)
+    lattice = lattice + (rand(lattice.shape) - 0.5) * (0.1 * h / 4)
+    far = torch.tensor([gx - 1.0, gy - 1.0, gz - 1.0]) * h   # corner cell
+    edge = torch.tensor([gx - 1.0, 0.0, 3.0]) * h            # edge cell
+    lone = torch.tensor([[3.5, 3.5, 1.5], [1.5, 3.5, 5.5]]) * h
+    pos = torch.cat([lattice, far + rand(40, 3) * h, edge + rand(24, 3) * h,
+                     lone])
+    n_real = pos.shape[0]
+    n = params.n_pad
+    pos = torch.cat([pos, torch.zeros(n - n_real, 3)])
+    material = torch.where(rand(n) < 0.2, MATERIAL_RIGID, MATERIAL_FLUID)
+    material[n_real:] = MATERIAL_NONE
+    material = material.to(torch.int32)
+    density = 900.0 + 200.0 * rand(n)
+    kappa = -50.0 + 250.0 * rand(n)
+    fields = {"pos": pos, "vel": rand(n, 3) - 0.5, "material": material,
+              "mass": params.v0 * params.density0 * (0.9 + 0.2 * rand(n)),
+              "rest_volume": params.v0 * (0.9 + 0.2 * rand(n)),
+              "density": density, "inv_rho": 1.0 / density,
+              "object_id": (rand(n) * 3).to(torch.int32),
+              "kappa": kappa, "k_rho": kappa / density}
+    cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
+    perm = neighbors.sort_permutation(cells)
+    fields = {k: v[perm].contiguous() for k, v in fields.items()}
+    return (params, cells[perm].contiguous(),
+            fields["material"] == MATERIAL_FLUID, fields)
 
 
 def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],

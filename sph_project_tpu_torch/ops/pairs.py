@@ -11,7 +11,9 @@ consecutive sorted rows, and segment ``s = (dx, dy)`` of a block is one index
 range, the union over the block's rows of the 3 z-cells around each row's
 cell in the (x+dx, y+dy) row of cells. A block that spans several (x, y) rows
 has overlapping windows, so a candidate ``j`` of segment ``s`` counts for row
-``i`` only if ``rows[j] == rows[i] + dx*gy + dy``.
+``i`` only if ``rows[j] == rows[i] + dx*gy + dy`` (the plain executor's test;
+the CUDA kernel finds the same candidates as the piece of the window whose
+cell ids lie in the row's three z-cells of that row of cells).
 
 Not carried over from the JAX slab engine: the pre-gathered slabs
 (``pos_slab``, ``jidx``, ``valid``, ``row_slab``, ``slab_pack``,
@@ -225,6 +227,35 @@ def make_slab_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
         starts=starts.to(torch.int32).contiguous(),
         lens=lens.to(torch.int32).contiguous(),
         rows=(base.cells // params.grid_num[2]).contiguous(), block=B)
+
+
+def window_pieces(env: SlabEnv, rows: torch.Tensor):
+    """(lo, length), each (R, 9): the piece of its block's window that each
+    row tests under the slab-window kernel (``csrc/pair_slab.cu``), found as
+    the kernel finds it, from the window table and the sorted cell ids: the
+    candidates of the window whose cell id lies in the three z-cells around
+    the row's in the segment's row of cells. Empty where that row of cells
+    does not exist."""
+    gx, gy, gz = env.grid
+    cells = env.cells.long()
+    c = cells[rows]
+    x, y, z = _cell_xy(c, env.grid)
+    live = c < gx * gy * gz
+    zlo = torch.clamp_min(z - 1, 0)
+    zhi = torch.clamp_max(z + 1, gz - 1)
+    ws = env.starts.long()[rows // env.block]
+    we = ws + env.lens.long()[rows // env.block]
+    want = torch.stack([((x + dx) * gy + (y + dy)) * gz
+                        for dx, dy in SEGMENTS], 1)
+    ok = torch.stack([live & (x + dx >= 0) & (x + dx < gx) & (y + dy >= 0)
+                      & (y + dy < gy) for dx, dy in SEGMENTS], 1)
+    # the ids are sorted over all rows, so a search inside [ws, we) is the
+    # search over all of them, clamped to the window
+    lo = torch.searchsorted(cells, (want + zlo[:, None]).contiguous())
+    hi = torch.searchsorted(cells, (want + zhi[:, None] + 1).contiguous())
+    lo = torch.minimum(torch.maximum(lo, ws), we)
+    hi = torch.minimum(torch.maximum(hi, lo), we)
+    return lo, torch.where(ok, hi - lo, torch.zeros_like(lo))
 
 
 def _expand_runs(lo: torch.Tensor, ln: torch.Tensor, m: int):
