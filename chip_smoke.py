@@ -13,21 +13,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 3. the paths, each on the flagship scene ``large_scale_dfsph.json`` at full
    size (1,958,454 particles) through ``load_scene`` and
    ``Simulation(scene, state)`` (prepare) and some steps on the card:
-   the cold step through the cell-list kernel; the warm-started step through
-   the slab-window kernel (``pair_backend="pallas"``, both warm starts), 8
-   steps; and two short runs, warm through the cell-list kernel and cold
-   through the slab-window kernel, so that every body launches under both
-   engines. Launch counts are zeroed just before each path and read just
-   after; every kernel the path should run must have launched, and no kernel
-   of the other engine. Per step: wall ms, iteration counts, density range,
-   overflow counters;
+   DFSPH cold through the cell-list kernel; DFSPH warm-started through the
+   slab-window kernel (``pair_backend="pallas"``, both warm starts); two
+   short DFSPH runs, warm through the cell-list kernel and cold through the
+   slab-window kernel; then WCSPH, PCISPH and IISPH (``simulation_method``
+   overridden) through the cell-list kernel and, in short runs, through the
+   slab-window kernel, so that every body launches under both engines.
+   Launch counts are zeroed just before each path and read just after; every
+   kernel the path should run must have launched, and no other. Per step:
+   wall ms, iteration counts, density range, overflow counters;
 4. each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes: every pair body of the cell-list kernel on the sorted
-   state the cold path left, every pair body of the slab-window kernel on the
-   state the warm slab path left (all producing blocks, neighbour counts
-   exact), the two kernels against each other there, and the fused gather on
-   the permutation of the next step's sort with the cold path's fields and
-   with the warm path's. Prints the error, the kernel's, the plain version's
+   flagship's shapes: the DFSPH bodies of the cell-list kernel on the sorted
+   state the cold DFSPH path left and those of the slab-window kernel on the
+   state the warm slab path left; the WCSPH, PCISPH and IISPH bodies of each
+   kernel on the state its IISPH path left, sorted again as its next step
+   would sort it, since the step moves the fluid after its sort (all
+   producing rows, neighbour counts exact; pressures, predicted positions,
+   d_ii and sum d_ij p_j made from a numpy seed); the two kernels against
+   each other on both slab states; and the fused gather on the permutation
+   of the next step's sort with the cold path's fields and with the warm
+   path's. Prints the error, the kernel's, the plain version's
    and (for the gather) ``index_select``'s time, the least time the card could
    take (``bound_ms``) and the least this method could take
    (``issue_floor_ms``), the candidates each engine tests per pair it keeps
@@ -37,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    holds, in runs that cross several staged tiles, through both kernels
    against their plain versions;
 5. the small domain-box scene for ``SMALL_STEPS`` steps on the CPU (plain
-   versions) and on the card (kernels), cold through the cell-list engine,
-   warm through it, and warm through the slab-window engine: equal iteration
+   versions) and on the card (kernels): DFSPH cold through the cell-list
+   engine, warm through it and warm through the slab-window engine, then
+   WCSPH, PCISPH and IISPH through the cell-list engine: equal iteration
    counts every step and every fluid particle within 1e-5 of its counterpart;
 6. one JSON line with every kernel record, the card line again, then the
    result.
@@ -60,14 +66,37 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "data", "scenes", "large_scale_dfsph.json")
 WARM = dict(dfsph_warm_start=True, dfsph_warm_start_div=True)
-# (label, parameter overrides, steps); the first two are measured in phase 4
-PATHS = (("cold, cell-list kernel", {}, 4),
-         ("warm start, slab-window kernel", dict(WARM, pair_backend="pallas"), 8),
-         ("warm start, cell-list kernel", WARM, 3),
-         ("cold, slab-window kernel", dict(pair_backend="pallas"), 2))
+SLAB = dict(pair_backend="pallas")
+# the bodies each method's path runs; prepare adds rigid_volume (the walls)
+DFSPH_BODIES = ("density", "alpha", "nonpressure", "divergence", "correction",
+                "density_alpha_divergence", "rigid_volume", "nonpressure_warm")
+NEW_METHOD_BODIES = {
+    "wcsph": ("pressure",),
+    "pcisph": ("pcisph_density_pred", "pressure"),
+    "iisph": ("iisph_dii", "iisph_aii", "iisph_density_star", "iisph_dij_pj",
+              "iisph_sum_i", "pressure")}
+NEW_BODIES = tuple(dict.fromkeys(b for bodies in NEW_METHOD_BODIES.values()
+                                 for b in bodies))
+# (label, parameter overrides, steps); phase 4 measures on the states the
+# paths in MEASURED leave
+PATHS = (("DFSPH cold, cell-list kernel", {}, 4),
+         ("DFSPH warm start, slab-window kernel", dict(WARM, **SLAB), 4),
+         ("DFSPH warm start, cell-list kernel", WARM, 2),
+         ("DFSPH cold, slab-window kernel", SLAB, 2),
+         ("WCSPH, cell-list kernel", dict(simulation_method="wcsph"), 3),
+         ("PCISPH, cell-list kernel", dict(simulation_method="pcisph"), 3),
+         ("IISPH, cell-list kernel", dict(simulation_method="iisph"), 4),
+         ("WCSPH, slab-window kernel", dict(simulation_method="wcsph", **SLAB), 2),
+         ("PCISPH, slab-window kernel", dict(simulation_method="pcisph", **SLAB), 2),
+         ("IISPH, slab-window kernel", dict(simulation_method="iisph", **SLAB), 2))
+MEASURED = ("DFSPH cold, cell-list kernel", "DFSPH warm start, slab-window kernel",
+            "IISPH, cell-list kernel", "IISPH, slab-window kernel")
 SMALL_STEPS = 20
-SMALL_RUNS = (("cold, cell-list", {}), ("warm start, cell-list", WARM),
-              ("warm start, slab-window", dict(WARM, pair_backend="pallas")))
+SMALL_RUNS = (("DFSPH cold, cell-list", {}), ("DFSPH warm start, cell-list", WARM),
+              ("DFSPH warm start, slab-window", dict(WARM, **SLAB)),
+              ("WCSPH, cell-list", dict(simulation_method="wcsph")),
+              ("PCISPH, cell-list", dict(simulation_method="pcisph")),
+              ("IISPH, cell-list", dict(simulation_method="iisph")))
 # kernel vs plain on the same inputs: float32 sums of ~30-60 terms taken in
 # another order (max|a-b| <= TOL * max(1, max|b|)); counts and the gather exact
 TOL = 2e-5
@@ -86,7 +115,10 @@ GEOMETRY_OPS = 8
 OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
                 "divergence": 24, "correction": 28,
                 "density_alpha_divergence": 60, "rigid_volume": 15,
-                "nonpressure_warm": 71}
+                "nonpressure_warm": 71, "pressure": 25,
+                "pcisph_density_pred": 21, "iisph_dii": 25, "iisph_aii": 33,
+                "iisph_density_star": 24, "iisph_dij_pj": 26,
+                "iisph_sum_i": 47}
 # what the method needs at the least, beside the card's bound: every candidate
 # a row tests costs 12 instructions (3 loads, 3 subtractions, 3
 # multiplications, 2 additions, 1 compare; the loop, the j != i compare and
@@ -97,7 +129,8 @@ OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
 # reports.
 TEST_INSTR = 12
 SCHEDULERS_PER_SM = 4
-PILE_UP_BODIES = ("density_alpha_divergence", "nonpressure_warm")
+PILE_UP_BODIES = ("density_alpha_divergence", "nonpressure_warm", "pressure",
+                  "iisph_sum_i")
 ENGINES = {
     "pair_pass": ("sph_project_tpu_torch/csrc/pair_pass.cu",
                   "sph_project_tpu/ops/pair_dma.py:574"),
@@ -177,6 +210,24 @@ def small_box_config() -> dict:
                          "entryTime": -1.0}]}
 
 
+def expected_bodies(params) -> set:
+    """The pair bodies a path of ``params``' method launches, prepare's
+    rigid volumes included."""
+    method = params.simulation_method
+    if method == "dfsph":
+        unused = "nonpressure" if params.dfsph_warm_start else "nonpressure_warm"
+        return {b for b in DFSPH_BODIES if b != unused}
+    return {"rigid_volume", "density", "nonpressure",
+            *NEW_METHOD_BODIES[method]}
+
+
+def path_kind(params) -> str:
+    method = params.simulation_method
+    if method == "dfsph":
+        return "dfsph warm" if params.dfsph_warm_start else "dfsph cold"
+    return method
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -230,8 +281,9 @@ def main() -> int:
         t0 = time.perf_counter()
         sim = simlib.Simulation(scene, state)
         torch.cuda.synchronize()
-        say(f"[3] {label}: prepare (sort, rigid volumes, density, alpha) on "
-            f"{sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        say(f"[3] {label}: prepare (sort, rigid volumes"
+            f"{', density, alpha' if params.simulation_method == 'dfsph' else ''}"
+            f") on {sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         step_ms = []
         for s in range(steps):
             before = dict(pk.launches)
@@ -241,9 +293,10 @@ def main() -> int:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             row = {k: (float(v) if v.is_floating_point() else int(v))
                    for k, v in d.items()}
-            say(f"[3] step {s}: {step_ms[-1]:.2f} ms "
-                f"solver_iters {row['solver_iters']} "
-                f"div_iters {row['div_iters']} "
+            iters = "".join(f"{k} {row[k]} " for k in ("solver_iters",
+                                                         "div_iters")
+                            if k in row)
+            say(f"[3] step {s}: {step_ms[-1]:.2f} ms {iters}"
                 f"density_avg {row['density_avg']:.3f} "
                 f"density_max {row['density_max']:.3f} "
                 f"vel_max {row['vel_max']:.4f} "
@@ -264,8 +317,7 @@ def main() -> int:
         engine = pk.engine_of(sim.state.cached_neighbors)
         check(engine == ("pair_slab" if overrides.get("pair_backend")
                          == "pallas" else "pair_pass"), f"{label}: engine")
-        unused = "nonpressure" if params.dfsph_warm_start else "nonpressure_warm"
-        expected = {f"{engine}/{b}" for b in pk.BODIES if b != unused}
+        expected = {f"{engine}/{b}" for b in expected_bodies(params)}
         expected.add("permute")
         for k, v in launches.items():
             check((v > 0) == (k in expected),
@@ -284,15 +336,16 @@ def main() -> int:
                 f"show here")
         return sim, launches, last_step
 
-    sims, path_launches, step_launches = [], [], {}
+    sims, path_launches, step_launches = {}, [], {}
     for label, overrides, steps in PATHS:
         sim, launches, last_step = drive(label, overrides, steps)
         path_launches.append(launches)
-        # pair launches of one free-fall step, by engine and cold or warm
+        # pair launches of one free-fall step, by engine and method
         step_launches[(pk.engine_of(sim.state.cached_neighbors),
-                       "warm" if sim.params.dfsph_warm_start else "cold")] = last_step
-        # the two short runs only count launches
-        sims.append(sim if len(sims) < 2 else None)
+                       path_kind(sim.params))] = last_step
+        # the other runs only count launches
+        if label in MEASURED:
+            sims[label] = sim
         del sim
         torch.cuda.empty_cache()
     total_launches = {k: sum(p[k] for p in path_launches)
@@ -303,25 +356,45 @@ def main() -> int:
     # ---- 4. kernels vs plain versions at the flagship's shapes -------------
     records = []
 
-    def pair_fields(p, n):
+    def pair_fields(sim):
+        """The fields of every body on ``sim``'s state; the stiffness, the
+        pressure, the predicted positions, d_ii and sum d_ij p_j from a
+        numpy seed."""
+        st, params = sim.state, sim.params
+        p, n = st.particles, params.n_pad
         rng = np.random.default_rng(0)
-        kappa = torch.from_numpy(
-            rng.uniform(-50.0, 200.0, n).astype(np.float32)).cuda()
+
+        def seeded(x):
+            return torch.from_numpy(x.astype(np.float32)).cuda()
+
+        kappa = seeded(rng.uniform(-50.0, 200.0, n))
+        pressure = seeded(rng.uniform(0.0, 5000.0, n))
+        fluid = (p.material == MATERIAL_FLUID)[:, None]
+        shift = seeded(rng.normal(0.0, 0.1 * params.particle_radius, (n, 3)))
+        rho2 = torch.clamp_min(p.density * p.density, 1e-12)
         return {"pos": p.pos, "vel": p.vel, "material": p.material,
                 "mass": p.mass, "rest_volume": p.rest_volume,
                 "inv_rho": common._inv_rho(p), "object_id": p.object_id,
                 "kappa": kappa,
-                "k_rho": kappa / torch.clamp_min(p.density, 1e-12)}
+                "k_rho": kappa / torch.clamp_min(p.density, 1e-12),
+                "pressure": pressure, "density": p.density,
+                "p_rho2": pressure / rho2,
+                "dpi": params.density0 * p.rest_volume / rho2,
+                "inv_star2": 1.0 / torch.clamp_min(
+                    torch.square(st.iisph_density_star), 1e-12),
+                "pred": torch.where(fluid, p.pos + shift, p.pos),
+                "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
+                "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3)))}
 
-    def check_engine(sim):
-        """Every body of the engine of ``sim``'s environment against its
-        plain version on ``sim``'s state; appends the records."""
+    def check_engine(sim, bodies):
+        """``bodies`` of the engine of ``sim``'s environment against their
+        plain versions on ``sim``'s state; appends the records."""
         env = sim.state.cached_neighbors
         params, p = sim.params, sim.state.particles
         engine = pk.engine_of(env)
         slab = engine == "pair_slab"
         n = params.n_pad
-        fields = pair_fields(p, n)
+        fields = pair_fields(sim)
         rigid_rows = p.material == MATERIAL_RIGID
 
         def work(produce):
@@ -351,7 +424,8 @@ def main() -> int:
                 f"{int(env.lens.max())} (what a block stages; a row tests "
                 f"only its piece); the plain version runs over all blocks "
                 f"for every body")
-        for name, (_, _, _, needs) in pk.BODIES.items():
+        for name in bodies:
+            needs = pk.BODIES[name][3]
             flags = 1 if name == "divergence" else 0
             produce = rigid_rows if name == "rigid_volume" else None
             fk = {k: fields[k] for k in needs}
@@ -394,16 +468,17 @@ def main() -> int:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 issue_floor_ms=floor_ms, tests_per_pair=tests / max(npairs, 1),
-                launches_cold_step=step_launches[engine, "cold"][
-                    f"{engine}/{name}"],
-                launches_warm_step=step_launches[engine, "warm"][
-                    f"{engine}/{name}"]))
+                launches_per_step={
+                    kind: last[f"{engine}/{name}"]
+                    for (e, kind), last in step_launches.items()
+                    if e == engine and last[f"{engine}/{name}"]}))
         if slab:
             # the two kernels on one state: a row tests the same candidates
             # in the same order under both and adds what it keeps in that
             # order, so the sums are equal bit for bit
             cell_env = pairs.make_pair_env(env.cells, env.produce, params)
-            for name, (_, _, _, needs) in pk.BODIES.items():
+            for name in bodies:
+                needs = pk.BODIES[name][3]
                 flags = 1 if name == "divergence" else 0
                 produce = rigid_rows if name == "rigid_volume" else None
                 fk = {k: fields[k] for k in needs}
@@ -498,9 +573,17 @@ def main() -> int:
         f"highest SM clock); a candidate tested counts {TEST_INSTR}, a pair "
         f"kept the operations of the bound")
     check_pile_up()
-    cold_sim, slab_sim = sims[0], sims[1]
-    check_engine(cold_sim)
-    check_engine(slab_sim)
+    cold_sim, slab_sim = sims[MEASURED[0]], sims[MEASURED[1]]
+    check_engine(cold_sim, DFSPH_BODIES)
+    check_engine(slab_sim, DFSPH_BODIES)
+    for label in MEASURED[2:]:
+        # a feed-forward step moves the fluid after its sort: sort again, as
+        # the next step would, so that cells and positions agree
+        sim = sims[label]
+        state, env = simlib.Plumbing.neighbor_prep(sim.state, sim.params)
+        sim.state = state.replace(cached_neighbors=env)
+        check_engine(sim, NEW_BODIES)
+    del sim
     records.append(dict(
         name="permute", route="cuda",
         source="sph_project_tpu_torch/csrc/permute.cu",
@@ -516,7 +599,8 @@ def main() -> int:
             sc, st = load_scene(config=SimConfig(config=small_box_config()),
                                 **overrides)
             small = simlib.Simulation(sc, st, device=dev)
-            iters = [(int(d["solver_iters"]), int(d["div_iters"]))
+            iters = [tuple(int(d[k]) for k in ("solver_iters", "div_iters")
+                           if k in d)
                      for d in (small.step() for _ in range(SMALL_STEPS))]
             sp = small.state.particles
             runs[dev] = (iters, sp.pos[sp.material == MATERIAL_FLUID].cpu())
@@ -527,8 +611,9 @@ def main() -> int:
         check(a.shape == b.shape, "small scene fluid counts differ")
         nn = float(torch.cdist(a, b).min(dim=1).values.max())
         say(f"[5] small domain-box scene, {label}, {SMALL_STEPS} steps: "
-            f"iterations (density, divergence) {runs['cuda'][0]} equal on "
-            f"CPU and card; max nearest-neighbour distance {nn:.3e}")
+            f"iterations (pressure solver, divergence solver) "
+            f"{runs['cuda'][0]} equal on CPU and card; max nearest-neighbour "
+            f"distance {nn:.3e}")
         check(nn < NN_TOL, f"small scene ({label}) trajectories differ by {nn}")
 
     # ---- 6. records --------------------------------------------------------

@@ -1,5 +1,5 @@
-// The SPH pair bodies of the DFSPH path as device functors, the arguments
-// they read and the cubic spline. Both pair kernels include this header
+// The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH) as
+// device functors, the arguments they read and the cubic spline. Both pair kernels include this header
 // (pair_pass.cu: the cell-list engine; pair_slab.cu: the slab-window
 // engine), so a body is written once and runs under either engine, as a body
 // of the JAX package written against ops/pair_exec.Cx runs under either of
@@ -32,6 +32,13 @@ enum Body {
   BODY_DENSITY_ALPHA_DIVERGENCE = 5,
   BODY_RIGID_VOLUME = 6,
   BODY_NONPRESSURE_WARM = 7,
+  BODY_PRESSURE = 8,
+  BODY_PCISPH_DENSITY_PRED = 9,
+  BODY_IISPH_DII = 10,
+  BODY_IISPH_AII = 11,
+  BODY_IISPH_DENSITY_STAR = 12,
+  BODY_IISPH_DIJ_PJ = 13,
+  BODY_IISPH_SUM_I = 14,
 };
 
 // Mirrors ops/pair_kernels.py PairArgs (ctypes), field for field.
@@ -48,6 +55,14 @@ struct PairArgs {
   const float* inv_rho;      // (n,)
   const float* kappa;        // (n,)
   const float* k_rho;        // (n,)
+  const float* pressure;     // (n,)
+  const float* density;      // (n,)
+  const float* p_rho2;       // (n,) pressure / max(density^2, 1e-12)
+  const float* dpi;          // (n,) rho0 V / max(density^2, 1e-12)
+  const float* inv_star2;    // (n,) 1 / max(previous rho*^2, 1e-12)
+  const float* pred;         // (n, 3) predicted positions
+  const float* dii;          // (n, 3)
+  const float* dij_pj;       // (n, 3)
   const int* starts;         // (n / block, 9) window starts    [slab]
   const int* lens;           // (n / block, 9) window lengths   [slab]
   float* out;                // (n_out, n)
@@ -226,6 +241,155 @@ struct RigidVolume {  // same-object W sum (common.compute_rigid_volume_fixedk)
   }
 };
 
+// cubic spline W from the distance, with its own q <= 1 cutoff, as
+// ops/kernels.py cubic_W (the r-form; the d2-form above leaves the cutoff to
+// the pair mask)
+__device__ __forceinline__ float cubic_W_r(float r, const float* c) {
+  const float q = r / c[0];
+  const float q2 = q * q;
+  float w;
+  if (q <= 0.5f) {
+    w = c[1] * (6.0f * q * q2 - 6.0f * q2 + 1.0f);
+  } else {
+    const float one_q = 1.0f - q;
+    w = c[2] * one_q * one_q * one_q;
+  }
+  return q <= 1.0f ? w : 0.0f;
+}
+
+// The bodies of WCSPH, PCISPH and IISPH. A neighbour that is neither fluid
+// nor rigid adds a signed zero in the plain versions and is skipped here,
+// which leaves every sum unchanged. c[4] is density0 where a body reads it.
+
+struct Pressure {  // common.pressure_acceleration (no wrench): acc0..2
+  static constexpr int NOUT = 3;
+  float pr_i;
+  __device__ void load(const PairArgs& a, int i) { pr_i = a.p_rho2[i]; }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const int mat_j = a.material[j];
+    float term;
+    if (mat_j == MATERIAL_FLUID) {
+      term = a.mass[j] * (pr_i + a.p_rho2[j]);
+    } else if (mat_j == MATERIAL_RIGID) {
+      term = a.c[4] * a.rest_volume[j] * pr_i;
+    } else {
+      return;
+    }
+    term = term * cubic_gw(d2, a.c);
+    for (int d = 0; d < 3; ++d) acc[d] += -term * R[d];
+  }
+};
+
+// pcisph._density_star_predicted: s. The engine accepted j on the sorted
+// positions; W is taken at the predicted distance, where a non-fluid j keeps
+// its position.
+struct PcisphDensityPred {
+  static constexpr int NOUT = 1;
+  float p[3];
+  __device__ void load(const PairArgs& a, int i) {
+    for (int d = 0; d < 3; ++d) p[d] = a.pred[3 * i + d];
+  }
+  __device__ void pair(const PairArgs& a, int j, const float*, float, float* acc) {
+    const float* xj = (a.material[j] == MATERIAL_FLUID ? a.pred : a.pos) + 3 * j;
+    const float r0 = p[0] - xj[0], r1 = p[1] - xj[1], r2 = p[2] - xj[2];
+    const float d2p = r0 * r0 + r1 * r1 + r2 * r2;
+    acc[0] += a.rest_volume[j] * cubic_W_r(sqrtf(d2p), a.c);
+  }
+};
+
+struct IisphDii {  // iisph.compute_dii: dii0..2
+  static constexpr int NOUT = 3;
+  float inv_star2_i;
+  __device__ void load(const PairArgs& a, int i) { inv_star2_i = a.inv_star2[i]; }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const int mat_j = a.material[j];
+    const float rho0v = a.c[4] * a.rest_volume[j];
+    float cc;
+    if (mat_j == MATERIAL_FLUID) {
+      const float rho = a.density[j];
+      cc = -rho0v / fmaxf(rho * rho, 1e-12f);
+    } else if (mat_j == MATERIAL_RIGID) {
+      cc = -rho0v * inv_star2_i;
+    } else {
+      return;
+    }
+    cc = cc * cubic_gw(d2, a.c);
+    for (int d = 0; d < 3; ++d) acc[d] += cc * R[d];
+  }
+};
+
+struct IisphAii {  // iisph.compute_aii, before the dt^2 factor: s
+  static constexpr int NOUT = 1;
+  float dii[3], dpi;
+  __device__ void load(const PairArgs& a, int i) {
+    for (int d = 0; d < 3; ++d) dii[d] = a.dii[3 * i + d];
+    dpi = a.dpi[i];
+  }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const float gw = cubic_gw(d2, a.c);
+    const float rho0v_j = a.c[4] * a.rest_volume[j];
+    float term = 0.0f;
+    for (int d = 0; d < 3; ++d) term = term + (dii[d] - dpi * gw * R[d]) * gw * R[d];
+    acc[0] += rho0v_j * term;
+  }
+};
+
+struct IisphDensityStar {  // iisph.compute_density_star, before the dt factor: s
+  static constexpr int NOUT = 1;
+  float v[3];
+  __device__ void load(const PairArgs& a, int i) {
+    for (int d = 0; d < 3; ++d) v[d] = a.vel[3 * i + d];
+  }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const float dv_r = (v[0] - a.vel[3 * j]) * R[0] + (v[1] - a.vel[3 * j + 1]) * R[1] +
+                       (v[2] - a.vel[3 * j + 2]) * R[2];
+    acc[0] += a.c[4] * a.rest_volume[j] * dv_r * cubic_gw(d2, a.c);
+  }
+};
+
+struct IisphDijPj {  // dij_pj_op of iisph.refine: dp0..2 (fluid j only)
+  static constexpr int NOUT = 3;
+  __device__ void load(const PairArgs&, int) {}
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    if (a.material[j] != MATERIAL_FLUID) return;
+    const float rho = a.density[j];
+    const float rho_j2 = fmaxf(rho * rho, 1e-12f);
+    const float rho0v = a.c[4] * a.rest_volume[j];
+    const float cc = -rho0v * a.pressure[j] / rho_j2 * cubic_gw(d2, a.c);
+    for (int d = 0; d < 3; ++d) acc[d] += cc * R[d];
+  }
+};
+
+// sum_i_op of iisph.refine, before the dt^2 factor: s. dij_pj is row i's
+// (loaded) and neighbour j's (read per pair) from one array.
+struct IisphSumI {
+  static constexpr int NOUT = 1;
+  float dij[3], dpi, pr_i;
+  __device__ void load(const PairArgs& a, int i) {
+    for (int d = 0; d < 3; ++d) dij[d] = a.dij_pj[3 * i + d];
+    dpi = a.dpi[i];
+    pr_i = a.pressure[i];
+  }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const int mat_j = a.material[j];
+    if (mat_j != MATERIAL_FLUID && mat_j != MATERIAL_RIGID) return;
+    const float gw = cubic_gw(d2, a.c);
+    const float rho0v_j = a.c[4] * a.rest_volume[j];
+    float t = 0.0f;
+    if (mat_j == MATERIAL_FLUID) {
+      const float pr_j = a.pressure[j];
+      for (int d = 0; d < 3; ++d) {
+        const float d_ji_pi = dpi * gw * R[d] * pr_i;
+        const float inner = dij[d] - a.dii[3 * j + d] * pr_j - (a.dij_pj[3 * j + d] - d_ji_pi);
+        t = t + inner * gw * R[d];
+      }
+    } else {
+      for (int d = 0; d < 3; ++d) t = t + dij[d] * gw * R[d];
+    }
+    acc[0] += rho0v_j * t;
+  }
+};
+
 // Runs Launch<Body>::run(a, outputs written, stream) for body id `body` and
 // returns its CUDA error code (0 = launched). Each engine gives its own Launch.
 template <template <class> class Launch>
@@ -239,6 +403,13 @@ static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
     case BODY_DENSITY_ALPHA_DIVERGENCE: return Launch<DensityAlphaDivergence>::run(a, 7, s);
     case BODY_RIGID_VOLUME: return Launch<RigidVolume>::run(a, 1, s);
     case BODY_NONPRESSURE_WARM: return Launch<NonpressureWarm>::run(a, 9, s);
+    case BODY_PRESSURE: return Launch<Pressure>::run(a, 3, s);
+    case BODY_PCISPH_DENSITY_PRED: return Launch<PcisphDensityPred>::run(a, 1, s);
+    case BODY_IISPH_DII: return Launch<IisphDii>::run(a, 3, s);
+    case BODY_IISPH_AII: return Launch<IisphAii>::run(a, 1, s);
+    case BODY_IISPH_DENSITY_STAR: return Launch<IisphDensityStar>::run(a, 1, s);
+    case BODY_IISPH_DIJ_PJ: return Launch<IisphDijPj>::run(a, 3, s);
+    case BODY_IISPH_SUM_I: return Launch<IisphSumI>::run(a, 1, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

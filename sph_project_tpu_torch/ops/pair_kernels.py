@@ -1,4 +1,4 @@
-"""The pair passes of the DFSPH path: plain bodies and the two CUDA kernels.
+"""The pair passes of the ported steps: plain bodies and the two CUDA kernels.
 
 Each pass is a named body. Its plain version below is written against
 ``pairs.Cx`` as the JAX package writes it against ``ops/pair_exec.Cx`` (the
@@ -13,8 +13,9 @@ the engine's plain executor; the CUDA path of neither engine ever gives way to
 a plain version. Outputs are per row, zero on rows that do not produce; vector
 outputs come back as (N, 3).
 
-Only bodies of the ported path exist: standard viscosity, cubic kernel, no
-dynamic rigid bodies (their wrench outputs are absent).
+Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH):
+standard viscosity, cubic kernel, no dynamic rigid bodies (their wrench
+outputs are absent).
 """
 from __future__ import annotations
 
@@ -165,6 +166,112 @@ def rigid_volume_body(cx, params, flags=0):
     return {"s": cx.sum(cx.where(same, _w(d2, params), 0.0), mask)}
 
 
+def pressure_body(cx, params, flags=0):
+    """The kern of common.pressure_acceleration :503 (symmetric pressure
+    acceleration, no dynamic-rigid wrench); ``p_rho2`` = p / max(rho^2,
+    1e-12) per particle."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    p_rho2_i = cx.blk("p_rho2")
+    term_f = cx.slab("mass") * (p_rho2_i + cx.slab("p_rho2"))
+    term_b = params.density0 * cx.slab("rest_volume") * p_rho2_i
+    term = (cx.where(fluid_j, term_f, 0.0) +
+            cx.where(rigid_j, term_b, 0.0)) * gw
+    return {f"acc{d}": cx.sum(-term * R[d], mask) for d in range(cx.dim)}
+
+
+def pcisph_density_pred_body(cx, params, flags=0):
+    """pcisph._density_star_predicted :72: the pair mask from the sorted
+    positions, W (the r-form, with its own q <= 1 cutoff) at the predicted
+    distance; a non-fluid j keeps its position."""
+    _, _, mask = cx.geometry()
+    fluid_j = cx.slab("material") == MATERIAL_FLUID
+    d2p = 0.0
+    for d in range(cx.dim):
+        pj = cx.where(fluid_j, cx.slab(f"pred{d}"), cx.slab(f"pos{d}"))
+        rp = cx.blk(f"pred{d}") - pj
+        d2p = d2p + rp * rp
+    W = kernels.W(torch.sqrt(d2p), params.support_radius, params.dim,
+                  params.kernel_type)
+    return {"s": cx.sum(cx.slab("rest_volume") * W, mask)}
+
+
+def iisph_dii_body(cx, params, flags=0):
+    """iisph.compute_dii :30; ``inv_star2`` = 1 / max(rho*_prev^2, 1e-12)
+    of row i."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    mat_j = cx.slab("material")
+    rho0v = params.density0 * cx.slab("rest_volume")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    rho_j2 = torch.clamp_min(torch.square(cx.slab("density")), 1e-12)
+    c = (cx.where(fluid_j, -rho0v / rho_j2, 0.0) +
+         cx.where(rigid_j, -rho0v * cx.blk("inv_star2"), 0.0)) * gw
+    return {f"dii{d}": cx.sum(c * R[d], mask) for d in range(cx.dim)}
+
+
+def iisph_aii_body(cx, params, flags=0):
+    """iisph.compute_aii :53 (before the dt^2 factor); ``dpi`` = rho0 V_i /
+    max(rho_i^2, 1e-12)."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    rho0v_j = params.density0 * cx.slab("rest_volume")
+    db = cx.vec_blk("dii")
+    term = sum((db[d] - cx.blk("dpi") * gw * R[d]) * gw * R[d]
+               for d in range(cx.dim))
+    return {"s": cx.sum(rho0v_j * term, mask)}
+
+
+def iisph_density_star_body(cx, params, flags=0):
+    """iisph.compute_density_star :71 (before the dt factor); rho0 enters
+    per pair."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    vb, vs = cx.vec_blk("vel"), cx.vec_slab("vel")
+    dv_R = sum((vb[d] - vs[d]) * R[d] for d in range(cx.dim))
+    contrib = params.density0 * cx.slab("rest_volume") * dv_R * gw
+    return {"s": cx.sum(contrib, mask)}
+
+
+def iisph_dij_pj_body(cx, params, flags=0):
+    """dij_pj_op of iisph.refine :96."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    fluid_j = mask & (cx.slab("material") == MATERIAL_FLUID)
+    rho_j2 = torch.clamp_min(torch.square(cx.slab("density")), 1e-12)
+    rho0v = params.density0 * cx.slab("rest_volume")
+    c = cx.where(fluid_j, -rho0v * cx.slab("pressure") / rho_j2, 0.0) * gw
+    return {f"dp{d}": cx.sum(c * R[d], mask) for d in range(cx.dim)}
+
+
+def iisph_sum_i_body(cx, params, flags=0):
+    """sum_i_op of iisph.refine :111 (before the dt^2 factor): ``dij_pj`` is
+    read as row i's and as neighbour j's."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    rho0v_j = params.density0 * cx.slab("rest_volume")
+    dijb = cx.vec_blk("dij_pj")
+    diis = cx.vec_slab("dii")
+    dps = cx.vec_slab("dij_pj")
+    prs = cx.slab("pressure")
+    t_f = 0.0
+    for d in range(cx.dim):
+        d_ji_pi = cx.blk("dpi") * gw * R[d] * cx.blk("pressure")
+        inner = dijb[d] - diis[d] * prs - (dps[d] - d_ji_pi)
+        t_f = t_f + inner * gw * R[d]
+    t_b = sum(dijb[d] * gw * R[d] for d in range(cx.dim))
+    contrib = cx.where(fluid_j, rho0v_j * t_f, 0.0) + \
+        cx.where(rigid_j, rho0v_j * t_b, 0.0)
+    return {"s": cx.sum(contrib, mask)}
+
+
 def _vec(name):
     return tuple(f"{name}{d}" for d in range(3))
 
@@ -191,6 +298,22 @@ BODIES = {
     "nonpressure_warm": (7, nonpressure_warm_body,
                          _vec("st") + _vec("acc") + _vec("wdv"),
                          _NONPRESSURE_FIELDS + ("kappa", "k_rho")),
+    "pressure": (8, pressure_body, _vec("acc"),
+                 ("pos", "material", "mass", "rest_volume", "p_rho2")),
+    "pcisph_density_pred": (9, pcisph_density_pred_body, ("s",),
+                            ("pos", "pred", "material", "rest_volume")),
+    "iisph_dii": (10, iisph_dii_body, _vec("dii"),
+                  ("pos", "material", "density", "rest_volume", "inv_star2")),
+    "iisph_aii": (11, iisph_aii_body, ("s",),
+                  ("pos", "rest_volume", "dii", "dpi")),
+    "iisph_density_star": (12, iisph_density_star_body, ("s",),
+                           ("pos", "vel", "rest_volume")),
+    "iisph_dij_pj": (13, iisph_dij_pj_body, _vec("dp"),
+                     ("pos", "material", "density", "rest_volume",
+                      "pressure")),
+    "iisph_sum_i": (14, iisph_sum_i_body, ("s",),
+                    ("pos", "material", "rest_volume", "dii", "pressure",
+                     "dij_pj", "dpi")),
 }
 
 # engine -> (source in csrc/, its C entry point)
@@ -225,6 +348,9 @@ def body_constants(name: str, params: SimParams) -> list:
               d2c * params.viscosity_b, params.density0]
     if name in ("correction", "nonpressure_warm"):
         c += [params.dfsph_eps * params.dt, params.density0]
+    if name in ("pressure", "iisph_dii", "iisph_aii", "iisph_density_star",
+                "iisph_dij_pj", "iisph_sum_i"):
+        c += [params.density0]
     return c
 
 
@@ -232,12 +358,11 @@ def body_constants(name: str, params: SimParams) -> list:
 
 _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "object_id", "rest_volume", "mass", "inv_rho", "kappa", "k_rho",
-               "starts", "lens", "out")
-_DTYPES = {"pos": torch.float32, "vel": torch.float32,
-           "material": torch.int32, "object_id": torch.int32,
-           "rest_volume": torch.float32, "mass": torch.float32,
-           "inv_rho": torch.float32, "kappa": torch.float32,
-           "k_rho": torch.float32}
+               "pressure", "density", "p_rho2", "dpi", "inv_star2", "pred",
+               "dii", "dij_pj", "starts", "lens", "out")
+# fields a body reads: (N, 3) vectors, i32 ids; every other one (N,) f32
+_VECTORS = ("pos", "vel", "pred", "dii", "dij_pj")
+_INTS = ("material", "object_id")
 N_CONST = 16
 
 
@@ -291,8 +416,9 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for key in needs:
         if key not in fields:
             raise ValueError(f"pair kernel {name}: missing field {key}")
-        shape = (n, 3) if key in ("pos", "vel") else (n,)
-        ptr(key, fields[key], _DTYPES[key], shape)
+        shape = (n, 3) if key in _VECTORS else (n,)
+        ptr(key, fields[key],
+            torch.int32 if key in _INTS else torch.float32, shape)
     ptr("cells", env.cells, torch.int32, (n,))
     if engine == "pair_slab":
         ptr("starts", env.starts, torch.int32, (n // env.block, 9))
@@ -377,6 +503,14 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
               "density": density, "inv_rho": 1.0 / density,
               "object_id": (rand(n) * 3).to(torch.int32),
               "kappa": kappa, "k_rho": kappa / density}
+    # the fields of the WCSPH, PCISPH and IISPH bodies
+    pressure = 5000.0 * rand(n)
+    fields.update(
+        pressure=pressure, p_rho2=pressure / (density * density),
+        dpi=params.density0 * fields["rest_volume"] / (density * density),
+        inv_star2=1.0 / (density * density),
+        pred=pos + (rand(n, 3) - 0.5) * (0.2 * h),
+        dii=(rand(n, 3) - 0.5) * 0.02, dij_pj=(rand(n, 3) - 0.5) * 20.0)
     cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
     perm = neighbors.sort_permutation(cells)
     fields = {k: v[perm].contiguous() for k, v in fields.items()}

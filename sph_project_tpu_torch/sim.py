@@ -1,12 +1,15 @@
 """Simulation orchestration: the per-step sort, prepare, the step, the driver.
 
-The JAX package's ``sim.py`` for the main path (line numbers name its
-functions). PyTorch runs eagerly, so there is no jit and no scan: ``step``
-runs one step and ``run`` loops over it. Every tensor of the state lives on
-the simulation's device, and the device defaults to ``"cuda"``; on a host
-without CUDA, ask for ``device="cpu"`` explicitly.
+The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH
+and IISPH (line numbers name its functions). PyTorch runs eagerly, so there
+is no jit and no scan: ``step`` runs one step and ``run`` loops over it.
+Every tensor of the state lives on the simulation's device, and the device
+defaults to ``"cuda"``; on a host without CUDA, ask for ``device="cpu"``
+explicitly.
 """
 from __future__ import annotations
+
+import importlib
 
 import torch
 
@@ -18,11 +21,18 @@ from .ops import permute as permlib
 from .solvers import common
 
 
+# the ported simulation methods, each the name of its module in .solvers
+METHODS = ("dfsph", "wcsph", "pcisph", "iisph")
+
+
 def _check_ported(params: SimParams) -> None:
-    if params.simulation_method != "dfsph":
+    if params.simulation_method not in METHODS:
         raise NotImplementedError(
             f"simulation method {params.simulation_method} is not ported yet "
-            "(ROADMAP Queue A.9)")
+            "(ROADMAP Queue A.9b)")
+    if params.viscosity_method != "standard":
+        raise NotImplementedError("implicit viscosity is not ported yet "
+                                  "(ROADMAP Queue A.10)")
     if params.has_entries:
         raise NotImplementedError("deferred entries and emitters are not "
                                   "ported yet (ROADMAP Queue A.12)")
@@ -30,12 +40,15 @@ def _check_ported(params: SimParams) -> None:
 
 def permuted_keys(params: SimParams) -> tuple:
     """Per-particle arrays that carry across the sort (:25): (fields of the
-    particles, fields of the state itself, the warm-start carries)."""
+    particles, fields of the state itself: IISPH's advected density and the
+    DFSPH warm-start carries)."""
     keys = ("pos", "vel", "mass", "rest_volume", "density", "material",
             "object_id", "is_dynamic")
     if params.has_rigid:
         keys += ("rigid_rest_pos",)
     extras = ()
+    if params.simulation_method == "iisph":
+        extras += ("iisph_density_star",)
     if params.dfsph_warm_start:
         extras += ("dfsph_kappa",)
     if params.dfsph_warm_start_div:
@@ -95,13 +108,19 @@ class Plumbing:
     def non_pressure_acceleration(p: ParticleState, rigid: RigidState,
                                   env: pairs.PairEnv, params: SimParams):
         """Gravity (assign) + surface tension + standard viscosity (:256)."""
-        if params.viscosity_method != "standard":
-            raise NotImplementedError("implicit viscosity is not ported yet "
-                                      "(ROADMAP Queue A.10)")
         acc = common.gravity_acceleration(p, params)
         a_v, rf, rt = common.nonpressure_fused(p, rigid, env, params)
         rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
         return p.replace(acc=acc + a_v), rigid
+
+    @staticmethod
+    def rigid_and_tail(state: SimState, params: SimParams) -> SimState:
+        """The feed-forward methods' step ending (:341) with static walls
+        only: the domain clamp of the fluid, then time and step count."""
+        p = common.enforce_domain_boundary(state.particles, params,
+                                           MATERIAL_FLUID)
+        return state.replace(particles=p, t=state.t + params.dt,
+                             step_count=state.step_count + 1)
 
     @staticmethod
     def diagnostics(state: SimState, env: pairs.PairEnv, params: SimParams,
@@ -144,10 +163,11 @@ def get_step_fn(params: SimParams):
     """The step function of the scene's method (:403), with the overflow
     accumulators carried in the state (:427-442)."""
     _check_ported(params)
-    from .solvers import dfsph
+    solver = importlib.import_module(f".solvers.{params.simulation_method}",
+                                     __package__)
 
     def step_with_overflow_accounting(state: SimState):
-        state, diag = dfsph.step(state, params, Plumbing)
+        state, diag = solver.step(state, params, Plumbing)
         so = diag["sort_overflow"]
         wo = diag["neighbor_overflow"] - so
         sort_acc = state.sort_overflow_acc + so
@@ -163,14 +183,16 @@ def get_step_fn(params: SimParams):
 
 def prepare(state: SimState, params: SimParams) -> SimState:
     """Initial setup (:447): sort, the Akinci volumes of the rigid particles,
-    then DFSPH's density and alpha. Every object of a loadable scene is
-    present from t = 0, so there is nothing to activate."""
+    then, for DFSPH only, density and alpha. Every object of a loadable scene
+    is present from t = 0, so there is nothing to activate."""
     _check_ported(params)
     state, env = Plumbing.neighbor_prep(state, params)
     p = state.particles
     if params.has_rigid:
         p = common.compute_rigid_volume_fixedk(p, env, params)
     state = state.replace(particles=p, cached_neighbors=env)
+    if params.simulation_method != "dfsph":
+        return state
     from .solvers import dfsph
     p = p.replace(density=common.compute_density(p, env, params))
     alpha = dfsph.compute_alpha(p, env, params)

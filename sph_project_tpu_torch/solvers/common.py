@@ -1,9 +1,9 @@
-"""Shared SPH operators of the DFSPH main path, over the pair kernels.
+"""Shared SPH operators of the ported steps, over the pair kernels.
 
-The subset of the JAX package's ``solvers/common.py`` that a DFSPH step with
-standard viscosity over fluid and static walls runs (line numbers name the
-JAX original). Per-particle arithmetic is plain tensor code; every neighbour
-sum goes through ``ops.pair_kernels.run``.
+The subset of the JAX package's ``solvers/common.py`` that DFSPH, WCSPH,
+PCISPH and IISPH steps with standard viscosity over fluid and static walls
+run (line numbers name the JAX original). Per-particle arithmetic is plain
+tensor code; every neighbour sum goes through ``ops.pair_kernels.run``.
 """
 from __future__ import annotations
 
@@ -97,6 +97,24 @@ def nonpressure_fused(p: ParticleState, rigid: RigidState, env: PairEnv,
     torque)."""
     out = pair_kernels.run("nonpressure", env, nonpressure_fields(p), params)
     return nonpressure_reduce(out, p, rigid, params)
+
+
+def pressure_acceleration(p: ParticleState, env: PairEnv, params: SimParams,
+                          pressure: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """a_i = -sum_j m_j (p_i/rho_i^2 + p_j/rho_j^2) gradW (fluid j), the
+    mirrored rigid term with rho0 (rigid j), on fluid dynamic rows (:479,
+    ``with_wrench=False``: the wrench exists only with dynamic rigid bodies).
+    p/rho^2 is taken once per particle (:496)."""
+    if pressure is None:
+        pressure = p.pressure
+    p_rho2 = pressure / torch.clamp_min(p.density * p.density, 1e-12)
+    out = pair_kernels.run("pressure", env,
+                           {"pos": p.pos, "material": p.material,
+                            "mass": p.mass, "rest_volume": p.rest_volume,
+                            "p_rho2": p_rho2}, params)
+    keep = _fluid(p) & (p.is_dynamic > 0)
+    return torch.where(keep[:, None], out["acc"], torch.zeros_like(out["acc"]))
 
 
 def update_fluid_velocity(p: ParticleState, params: SimParams) -> ParticleState:

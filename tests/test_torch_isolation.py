@@ -10,15 +10,15 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "sph_project_tpu_torch")
 
-# a fresh interpreter: load a small scene, run one CPU step (cold under the
-# cell-list engine, or warm under the slab-window engine), then list any
-# module of JAX or of the JAX package that got imported along the way
+# a fresh interpreter: load a small scene, run one CPU step (each ported
+# method under the cell-list engine, or DFSPH warm under the slab-window
+# engine), then list any module of JAX or of the JAX package that got
+# imported along the way
 _PROBE = """
 import sys
 from sph_project_tpu_torch.scene import load_scene
 from sph_project_tpu_torch.sim import Simulation
-scene, state = load_scene("data/scenes/smoke_test.json",
-                          simulation_method="dfsph", **%r)
+scene, state = load_scene("data/scenes/smoke_test.json", **%r)
 sim = Simulation(scene, state, device="cpu")
 assert type(sim.state.cached_neighbors).__name__ == %r
 diag = sim.step()
@@ -29,7 +29,7 @@ print("FOREIGN", bad)
 """
 
 
-def test_port_imports_no_jax(overrides={}, env_type="PairEnv"):
+def _probe(overrides, env_type):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _PROBE % (overrides, env_type)], cwd=ROOT, env=env,
@@ -38,9 +38,30 @@ def test_port_imports_no_jax(overrides={}, env_type="PairEnv"):
     assert "FOREIGN []" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("method", ["dfsph", "wcsph", "pcisph", "iisph"])
+def test_port_imports_no_jax(method):
+    _probe(dict(simulation_method=method), "PairEnv")
+
+
 def test_port_imports_no_jax_warm_slab():
-    test_port_imports_no_jax(dict(pair_backend="pallas", dfsph_warm_start=True,
-                                  dfsph_warm_start_div=True), "SlabEnv")
+    _probe(dict(simulation_method="dfsph", pair_backend="pallas",
+                dfsph_warm_start=True, dfsph_warm_start_div=True), "SlabEnv")
+
+
+@pytest.mark.parametrize("scene,overrides,item", [
+    ("smoke_test.json", dict(simulation_method="pbf"), "A.9b"),
+    ("smoke_test.json", dict(viscosity_method="implicit"), "A.10"),
+    ("dragon_bath_wcsph.json", {}, "A.11"),
+], ids=["pbf", "implicit_viscosity", "dynamic_rigid"])
+def test_unported_features_raise(scene, overrides, item):
+    """What the port does not run yet raises, naming its ROADMAP item, when
+    the scene is loaded or the simulation built, before any step."""
+    from sph_project_tpu_torch.scene import load_scene
+    from sph_project_tpu_torch.sim import Simulation
+    with pytest.raises(NotImplementedError, match=item):
+        sc, st = load_scene(os.path.join(ROOT, "data", "scenes", scene),
+                            **overrides)
+        Simulation(sc, st, device="cpu")
 
 
 def test_port_sources_name_no_jax():

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from sph_project_tpu.scene import load_scene as jax_load_scene
 from sph_project_tpu.utils.config import SimConfig as JaxSimConfig
@@ -17,6 +18,22 @@ from sph_project_tpu_torch import bridge
 from sph_project_tpu_torch.core import state as tstate
 from sph_project_tpu_torch.scene import load_scene as torch_load_scene
 from sph_project_tpu_torch.utils.config import SimConfig as TorchSimConfig
+
+
+def _warm_up_vector_math():
+    """Run torch's CPU vector math once before JAX runs anything.
+
+    In a process where XLA has already run, the first multi-threaded call of
+    ``torch.sqrt`` on a large float32 tensor can return square roots off by
+    about 1e-4 relative (in up to one process in three of the pass tests),
+    which breaks the per-pass tolerance of the port's plain versions. Every port test imports this module before its first JAX
+    computation."""
+    x = torch.rand(1 << 18) + 0.5
+    torch.sqrt(x)
+    torch.pow(x, 7.0)
+
+
+_warm_up_vector_math()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(ROOT, "data", "scenes")

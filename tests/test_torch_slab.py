@@ -99,12 +99,29 @@ def test_slab_pass_matches_pallas_kernel(monkeypatch):
 
 
 def _fields(s):
+    """The fields of every body; those of WCSPH, PCISPH and IISPH made from
+    a seed with numpy."""
     p = s.tp
+    n = s.params.n_pad
+    rng = np.random.default_rng(6)
+
+    def seeded(x):
+        return torch.from_numpy(x.astype(np.float32))
+
+    pressure = seeded(rng.uniform(0.0, 5000.0, n))
+    rho2 = torch.clamp_min(p.density * p.density, 1e-12)
     return {"pos": p.pos, "vel": p.vel, "material": p.material,
             "mass": p.mass, "rest_volume": p.rest_volume,
             "inv_rho": tcommon._inv_rho(p), "object_id": p.object_id,
             "kappa": s.kappa,
-            "k_rho": s.kappa / torch.clamp_min(p.density, 1e-12)}
+            "k_rho": s.kappa / torch.clamp_min(p.density, 1e-12),
+            "pressure": pressure, "density": p.density,
+            "p_rho2": pressure / rho2,
+            "dpi": s.params.density0 * p.rest_volume / rho2,
+            "inv_star2": 1.0 / seeded(rng.uniform(900.0, 1100.0, n)) ** 2,
+            "pred": p.pos + seeded(rng.uniform(-0.003, 0.003, (n, 3))),
+            "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
+            "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3)))}
 
 
 @pytest.mark.parametrize("name", list(pair_kernels.BODIES))

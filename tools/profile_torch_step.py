@@ -7,15 +7,17 @@ twice from the same state: first without the profiler, for the wall time,
 then again under ``torch.profiler``, for the device busy time (the union of
 kernel intervals). The idle share is 1 - busy / wall of the unprofiled run;
 the profiled run's own wall time is printed beside it. Also prints the
-corrector iterations (each one reads its error on the host; both runs must
+solver iterations (each one reads its error on the host; both runs must
 agree) and device time grouped by kernel family and by kernel name. Ends with
 one JSON line of the same numbers.
 
     python3 tools/profile_torch_step.py [--scene FILE]
+        [--method dfsph|wcsph|pcisph|iisph]
         [--pair-backend auto|pallas_dma|pallas] [--warm]
 
-``--pair-backend pallas`` profiles the slab-window pair engine instead of the
-cell-list engine, ``--warm`` turns both DFSPH warm starts on.
+``--method`` overrides the scene's simulation method, ``--pair-backend
+pallas`` profiles the slab-window pair engine instead of the cell-list
+engine, ``--warm`` turns both DFSPH warm starts on.
 """
 from __future__ import annotations
 
@@ -64,6 +66,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", default=os.path.join(
         ROOT, "data", "scenes", "large_scale_dfsph.json"))
+    ap.add_argument("--method", default="dfsph",
+                    choices=("dfsph", "wcsph", "pcisph", "iisph"))
     ap.add_argument("--pair-backend", default="auto",
                     choices=("auto", "pallas_dma", "pallas"))
     ap.add_argument("--warm", action="store_true")
@@ -80,7 +84,8 @@ def main() -> int:
                            "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    scene, state = load_scene(args.scene, pair_backend=args.pair_backend,
+    scene, state = load_scene(args.scene, simulation_method=args.method,
+                              pair_backend=args.pair_backend,
                               dfsph_warm_start=args.warm,
                               dfsph_warm_start_div=args.warm)
     sim = Simulation(scene, state)
@@ -97,7 +102,8 @@ def main() -> int:
         for _ in range(STEPS):
             t0 = time.perf_counter()
             d = sim.step()
-            iters.append((int(d["solver_iters"]), int(d["div_iters"])))
+            iters.append(tuple(int(d[k]) for k in ("solver_iters",
+                                                   "div_iters") if k in d))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         return ms, iters
@@ -125,16 +131,16 @@ def main() -> int:
         f[0] += n
         f[1] += t
     steps = STEPS
-    print(f"card: {card}; scene {os.path.basename(args.scene)}, "
-          f"{scene.params.n_particles} particles, pair_backend "
+    print(f"card: {card}; scene {os.path.basename(args.scene)}, method "
+          f"{args.method}, {scene.params.n_particles} particles, pair_backend "
           f"{args.pair_backend}, warm start {args.warm}; {steps} steps "
           f"profiled")
     print(f"per step: wall {wall_us / steps / 1e3:.3f} ms (under the "
           f"profiler {prof_wall_us / steps / 1e3:.3f} ms), device busy "
           f"{busy_us / steps / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.3f}; kernels per step "
-          f"{len(kernels) / steps:.1f}; corrector iterations "
-          f"(density, divergence) {iters}")
+          f"{len(kernels) / steps:.1f}; solver iterations "
+          f"(pressure, divergence) {iters}")
     print(f"per-step wall ms without the profiler {wall_ms}, under it "
           f"{prof_ms}")
     print("device time per step by family:")
@@ -144,7 +150,8 @@ def main() -> int:
     for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
         print(f"  {t / steps / 1e3:8.3f} ms  {n / steps:6.1f}x  {name[:100]}")
     print(json.dumps({
-        "card": card, "pair_backend": args.pair_backend, "warm": args.warm,
+        "card": card, "method": args.method,
+        "pair_backend": args.pair_backend, "warm": args.warm,
         "steps": steps, "iters": iters,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "profiled_wall_ms_per_step": prof_wall_us / steps / 1e3,
