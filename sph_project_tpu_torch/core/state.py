@@ -9,11 +9,25 @@ with some fields swapped, as ``flax.struct`` does on the JAX side.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing as tp
 
 import torch
 
 from .params import SimParams
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A constant tensor of host values (a number or a tuple) on ``device``,
+    made once and shared: ``torch.tensor(..., device="cuda")`` copies from
+    the host and waits for the stream to drain, once per call. Callers must
+    not write to it."""
+    return _constant(values, dtype, torch.device(device))
 
 
 class _TensorTree:

@@ -1,5 +1,6 @@
-// The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH) as
-// device functors, the arguments they read and the cubic spline. Both pair kernels include this header
+// The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH, over
+// fluid, static walls and dynamic rigid bodies) as device functors, the
+// arguments they read and the cubic spline. Both pair kernels include this header
 // (pair_pass.cu: the cell-list engine; pair_slab.cu: the slab-window
 // engine), so a body is written once and runs under either engine, as a body
 // of the JAX package written against ops/pair_exec.Cx runs under either of
@@ -8,7 +9,11 @@
 //
 // A body has NOUT output sums; load() reads row i's own fields, pair() adds
 // one neighbour j that the engine accepted (j != i, |x_i - x_j|^2 < h^2),
-// given R = x_i - x_j and d2 = |R|^2.
+// given R = x_i - x_j and d2 = |R|^2. A body with outputs for dynamic rigid
+// bodies (the fluid->rigid wrenches, the same-object kernel sum) is a
+// template on RIGID; flags & FLAG_RIGID launches the instance that adds them,
+// into sums after its other outputs, and the instance without it is the body
+// with no rigid outputs at all.
 //
 // Rounding: both kernels are built with -fmad=false and without fast math,
 // so the squared distance ((R0*R0 + R1*R1) + R2*R2) and every body
@@ -22,6 +27,8 @@
 #define MATERIAL_FLUID 1
 #define MATERIAL_RIGID 2
 #define N_CONST 16
+#define FLAG_COUNT 1  // divergence: also count the neighbours
+#define FLAG_RIGID 2  // the outputs of dynamic rigid bodies
 
 enum Body {
   BODY_DENSITY = 0,
@@ -39,6 +46,7 @@ enum Body {
   BODY_IISPH_DENSITY_STAR = 12,
   BODY_IISPH_DIJ_PJ = 13,
   BODY_IISPH_SUM_I = 14,
+  BODY_RIGID_CONTACT = 15,
 };
 
 // Mirrors ops/pair_kernels.py PairArgs (ctypes), field for field.
@@ -50,6 +58,7 @@ struct PairArgs {
   const uint8_t* produce;    // (n,) rows whose sums are read
   const int* material;       // (n,)
   const int* object_id;      // (n,)
+  const int* is_dynamic;     // (n,)                            [FLAG_RIGID]
   const float* rest_volume;  // (n,)
   const float* mass;         // (n,)
   const float* inv_rho;      // (n,)
@@ -63,12 +72,15 @@ struct PairArgs {
   const float* pred;         // (n, 3) predicted positions
   const float* dii;          // (n, 3)
   const float* dij_pj;       // (n, 3)
+  const float* com;          // (objects, 3) body com table     [pressure]
+  const int* chan;           // (objects,) contact channel      [contact]
   const int* starts;         // (n / block, 9) window starts    [slab]
   const int* lens;           // (n / block, 9) window lengths   [slab]
   float* out;                // (n_out, n)
   int n, gx, gy, gz;
-  int flags;                 // divergence: bit 0 = also count neighbours
+  int flags;                 // FLAG_COUNT, FLAG_RIGID
   int block;                 // rows per particle block         [slab]
+  int n_chan;                // contact channels                [contact]
   float dh2;
   // c[0..3] = h, k, 2k, 6k/h^2 (cubic spline); c[4..] body constants
   float c[N_CONST];
@@ -118,15 +130,32 @@ struct Alpha {  // dfsph.compute_alpha: sum_sq, vec0..2
   }
 };
 
-struct Nonpressure {  // common._nonpressure_outputs: st0..2, acc0..2
-  // c[4] diam^2, c[5] W(diam), c[6] 0.01 h^2, c[7] d2c*viscosity,
-  // c[8] d2c*viscosity_b, c[9] density0
-  static constexpr int NOUT = 6;
-  float v[3], m_i, inv_rho_i;
+// A functor with outputs for dynamic rigid bodies takes them as a template
+// flag RIGID: launch_body picks the instance from flags & FLAG_RIGID, so the
+// instance without it is the plain body, with no wrench sums, loads or
+// branches. Row i of a RIGID instance is a wrench row when it is a dynamic
+// rigid particle.
+__device__ __forceinline__ bool wrench_row(const PairArgs& a, int i) {
+  return a.material[i] == MATERIAL_RIGID && a.is_dynamic[i] > 0;
+}
+
+// common._nonpressure_outputs: st0..2, acc0..2, and under RIGID on dynamic
+// rigid rows the viscosity force from fluid neighbours at acc[W..W+2]
+// (fpp0..2). c[4] diam^2, c[5] W(diam), c[6] 0.01 h^2, c[7] d2c*viscosity,
+// c[8] d2c*viscosity_b, c[9] density0
+template <bool RIGID, int W = 6>
+struct NonpressureAt {
+  static constexpr int NOUT = RIGID ? W + 3 : 6;
+  float v[3], m_i, inv_rho_i, vol_i;
+  bool wrench;
   __device__ void load(const PairArgs& a, int i) {
     for (int d = 0; d < 3; ++d) v[d] = a.vel[3 * i + d];
     m_i = a.mass[i];
     inv_rho_i = a.inv_rho[i];
+    if (RIGID) {
+      wrench = wrench_row(a, i);
+      vol_i = a.rest_volume[i];
+    }
   }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     const float* c = a.c;
@@ -153,6 +182,10 @@ struct Nonpressure {  // common._nonpressure_outputs: st0..2, acc0..2
     }
     coef = coef * gw;
     for (int d = 0; d < 3; ++d) acc[3 + d] += coef * R[d];
+    if (RIGID && wrench && fluid_j) {
+      const float cw = c[8] * vol_i * m_j * a.inv_rho[j] * inv_denom * v_xy * gw;
+      for (int d = 0; d < 3; ++d) acc[W + d] += cw * R[d];
+    }
   }
 };
 
@@ -170,53 +203,84 @@ struct Divergence {  // dfsph._divergence_sum: s (, cnt)
   }
 };
 
-// dfsph._correction_outputs: dv0..2; c[C0] dfsph_eps*dt, c[C0 + 1] density0
-template <int C0>
+// dfsph._correction_outputs: dv0..2, and under RIGID on dynamic rigid rows
+// the force from fluid neighbours at acc[W..W+2] (fp0..2). c[C0]
+// dfsph_eps*dt, c[C0 + 1] density0, c[C0 + 2] dt
+template <bool RIGID, int C0 = 4, int W = 3>
 struct CorrectionAt {
-  static constexpr int NOUT = 3;
-  float k_i, kr_i;
+  static constexpr int NOUT = RIGID ? W + 3 : 3;
+  float k_i, kr_i, vol_i;
+  bool wrench;
   __device__ void load(const PairArgs& a, int i) {
     k_i = a.kappa[i];
     kr_i = a.k_rho[i];
+    if (RIGID) {
+      wrench = wrench_row(a, i);
+      vol_i = a.rest_volume[i];
+    }
   }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     const float* c = a.c;
     const int mat_j = a.material[j];
-    const bool fluid_j = mat_j == MATERIAL_FLUID && fabsf(k_i + a.kappa[j]) > c[C0];
+    if (!RIGID) {
+      const bool fluid_j = mat_j == MATERIAL_FLUID && fabsf(k_i + a.kappa[j]) > c[C0];
+      const bool rigid_j = mat_j == MATERIAL_RIGID && fabsf(k_i) > c[C0];
+      if (!(fluid_j || rigid_j)) return;
+      const float vgw = a.rest_volume[j] * cubic_gw(d2, c);
+      const float k = fluid_j ? kr_i + a.k_rho[j] : kr_i;
+      const float coef = k * c[C0 + 1] * vgw;
+      for (int d = 0; d < 3; ++d) acc[d] += -coef * R[d];
+      return;
+    }
+    const float k_j = a.kappa[j];
+    const bool fluid_j = mat_j == MATERIAL_FLUID && fabsf(k_i + k_j) > c[C0];
     const bool rigid_j = mat_j == MATERIAL_RIGID && fabsf(k_i) > c[C0];
-    if (!(fluid_j || rigid_j)) return;
-    const float vgw = a.rest_volume[j] * cubic_gw(d2, c);
-    const float k = fluid_j ? kr_i + a.k_rho[j] : kr_i;
-    const float coef = k * c[C0 + 1] * vgw;
-    for (int d = 0; d < 3; ++d) acc[d] += -coef * R[d];
+    const bool wrench_j = wrench && mat_j == MATERIAL_FLUID && fabsf(k_j) > c[C0];
+    if (!(fluid_j || rigid_j || wrench_j)) return;
+    const float gw = cubic_gw(d2, c);
+    if (fluid_j || rigid_j) {
+      const float vgw = a.rest_volume[j] * gw;
+      const float k = fluid_j ? kr_i + a.k_rho[j] : kr_i;
+      const float coef = k * c[C0 + 1] * vgw;
+      for (int d = 0; d < 3; ++d) acc[d] += -coef * R[d];
+    }
+    if (wrench_j) {
+      const float cw = -vol_i * a.k_rho[j] * c[C0 + 1] / c[C0 + 2] *
+                       (a.rest_volume[j] * c[C0 + 1]) * gw;
+      for (int d = 0; d < 3; ++d) acc[W + d] += cw * R[d];
+    }
   }
 };
 
-using Correction = CorrectionAt<4>;
-
 // dfsph.nonpressure_warm_fused: the non-pressure sums and the warm-start
-// correction in one pass: st0..2, acc0..2, wdv0..2. Constants: Nonpressure's
-// at c[4..9], the correction's at c[10..11].
+// correction in one pass: st0..2, acc0..2, wdv0..2, then under RIGID on
+// dynamic rigid rows both wrenches, fpp0..2 and wfp0..2. Constants: the
+// non-pressure ones at c[4..9], the correction's at c[10..12].
+template <bool RIGID>
 struct NonpressureWarm {
-  static constexpr int NOUT = Nonpressure::NOUT + Correction::NOUT;
-  Nonpressure nonpressure;
-  CorrectionAt<10> correction;
+  static constexpr int NOUT = RIGID ? 15 : 9;
+  NonpressureAt<RIGID, 9> nonpressure;     // st, acc at 0..5; fpp at 9..11
+  CorrectionAt<RIGID, 10, 6> correction;  // at 6: wdv at 6..8; wfp at 12..14
   __device__ void load(const PairArgs& a, int i) {
     nonpressure.load(a, i);
     correction.load(a, i);
   }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     nonpressure.pair(a, j, R, d2, acc);
-    correction.pair(a, j, R, d2, acc + Nonpressure::NOUT);
+    correction.pair(a, j, R, d2, acc + 6);
   }
 };
 
+template <bool RIGID>
 struct DensityAlphaDivergence {  // dfsph.density_alpha_divergence
-  // outputs: sd, sum_sq, sv, cnt, vec0..2
-  static constexpr int NOUT = 7;
+  // outputs: sd, sum_sq, sv, cnt, vec0..2, and under RIGID svol, the
+  // same-object W sum of the rigid pseudo-volumes
+  static constexpr int NOUT = RIGID ? 8 : 7;
   float v[3];
+  int obj;
   __device__ void load(const PairArgs& a, int i) {
     for (int d = 0; d < 3; ++d) v[d] = a.vel[3 * i + d];
+    if (RIGID) obj = a.object_id[i];
   }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     const float vj = a.rest_volume[j];
@@ -224,11 +288,13 @@ struct DensityAlphaDivergence {  // dfsph.density_alpha_divergence
     const float cc = -vj * gw;
     const float dv_r = (v[0] - a.vel[3 * j]) * R[0] + (v[1] - a.vel[3 * j + 1]) * R[1] +
                        (v[2] - a.vel[3 * j + 2]) * R[2];
-    acc[0] += vj * cubic_w(d2, a.c);
+    const float w = cubic_w(d2, a.c);
+    acc[0] += vj * w;
     if (a.material[j] == MATERIAL_FLUID) acc[1] += cc * cc * d2;
     acc[2] += vj * dv_r * gw;
     acc[3] += 1.0f;
     for (int d = 0; d < 3; ++d) acc[4 + d] += cc * R[d];
+    if (RIGID && a.object_id[j] == obj) acc[7] += w;
   }
 };
 
@@ -261,10 +327,26 @@ __device__ __forceinline__ float cubic_W_r(float r, const float* c) {
 // nor rigid adds a signed zero in the plain versions and is skipped here,
 // which leaves every sum unchanged. c[4] is density0 where a body reads it.
 
-struct Pressure {  // common.pressure_acceleration (no wrench): acc0..2
-  static constexpr int NOUT = 3;
-  float pr_i;
-  __device__ void load(const PairArgs& a, int i) { pr_i = a.p_rho2[i]; }
+// common.pressure_acceleration: acc0..2, and under RIGID on dynamic rigid
+// rows the force fpp0..2 and torque tpp0..2 from fluid neighbours, the torque
+// per pair about the body's com (com, a table per object) with the fluid
+// particle's position x_i - R as its point.
+template <bool RIGID>
+struct Pressure {
+  static constexpr int NOUT = RIGID ? 9 : 3;
+  float pr_i, vol_i, x[3], com[3];
+  bool wrench;
+  __device__ void load(const PairArgs& a, int i) {
+    pr_i = a.p_rho2[i];
+    if (!RIGID) return;
+    wrench = wrench_row(a, i);
+    vol_i = a.rest_volume[i];
+    const int o = wrench ? a.object_id[i] : 0;
+    for (int d = 0; d < 3; ++d) {
+      x[d] = a.pos[3 * i + d];
+      com[d] = wrench ? a.com[3 * o + d] : 0.0f;
+    }
+  }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     const int mat_j = a.material[j];
     float term;
@@ -275,8 +357,21 @@ struct Pressure {  // common.pressure_acceleration (no wrench): acc0..2
     } else {
       return;
     }
-    term = term * cubic_gw(d2, a.c);
+    const float gw = cubic_gw(d2, a.c);
+    term = term * gw;
     for (int d = 0; d < 3; ++d) acc[d] += -term * R[d];
+    if (RIGID && wrench && mat_j == MATERIAL_FLUID) {
+      const float cw = -(a.c[4] * vol_i) * a.p_rho2[j] * (a.c[4] * a.rest_volume[j]) * gw;
+      float f[3], arm[3];
+      for (int d = 0; d < 3; ++d) {
+        f[d] = cw * R[d];
+        arm[d] = x[d] - R[d] - com[d];
+      }
+      for (int d = 0; d < 3; ++d) acc[3 + d] += f[d];
+      acc[6] += arm[1] * f[2] - arm[2] * f[1];
+      acc[7] += arm[2] * f[0] - arm[0] * f[2];
+      acc[8] += arm[0] * f[1] - arm[1] * f[0];
+    }
   }
 };
 
@@ -390,26 +485,87 @@ struct IisphSumI {
   }
 };
 
+// integrator.rigid_contact_data: on a rigid row, per contact channel k, the
+// penetration-weighted sums over rigid neighbours of another object closer
+// than one particle diameter (c[4]): weight cw at acc[4k], normal cn at
+// acc[4k+1..4k+3]. The neighbour's channel is chan[its object]: the object's
+// index among the dynamic bodies, the last channel for static geometry, < 0
+// for none. The channel count is a launch argument (n_chan <= CMAX); the
+// sums stay in registers because the loop over channels is unrolled, each
+// channel's sums indexed by a constant.
+template <int CMAX>
+struct RigidContact {
+  static constexpr int NOUT = 4 * CMAX;
+  int obj;
+  bool rigid_i;
+  __device__ void load(const PairArgs& a, int i) {
+    obj = a.object_id[i];
+    rigid_i = a.material[i] == MATERIAL_RIGID;
+  }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    if (!rigid_i || a.material[j] != MATERIAL_RIGID) return;
+    const int oj = a.object_id[j];
+    if (oj == obj || oj < 0) return;
+    const float dist = sqrtf(d2);
+    if (!(dist < a.c[4])) return;
+    const int ch = a.chan[oj];
+    if (ch < 0) return;
+    const float pen = a.c[4] - dist;
+    const float inv_dist = 1.0f / fmaxf(dist, 1e-9f);
+#pragma unroll
+    for (int k = 0; k < CMAX; ++k) {
+      if (k == ch) {
+        acc[4 * k] += pen;
+        for (int d = 0; d < 3; ++d) acc[4 * k + 1 + d] += pen * R[d] * inv_dist;
+      }
+    }
+  }
+};
+
+// channel counts the contact body is built for: the count of a launch picks
+// the least that holds it
+#define CONTACT_CHANNELS_SMALL 4
+#define CONTACT_CHANNELS_MEDIUM 12
+#define CONTACT_CHANNELS_MAX 27
+
 // Runs Launch<Body>::run(a, outputs written, stream) for body id `body` and
 // returns its CUDA error code (0 = launched). Each engine gives its own Launch.
 template <template <class> class Launch>
 static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
+  const bool rigid = a.flags & FLAG_RIGID;
   switch (body) {
     case BODY_DENSITY: return Launch<Density>::run(a, 1, s);
     case BODY_ALPHA: return Launch<Alpha>::run(a, 4, s);
-    case BODY_NONPRESSURE: return Launch<Nonpressure>::run(a, 6, s);
-    case BODY_DIVERGENCE: return Launch<Divergence>::run(a, (a.flags & 1) ? 2 : 1, s);
-    case BODY_CORRECTION: return Launch<Correction>::run(a, 3, s);
-    case BODY_DENSITY_ALPHA_DIVERGENCE: return Launch<DensityAlphaDivergence>::run(a, 7, s);
+    case BODY_NONPRESSURE:
+      return rigid ? Launch<NonpressureAt<true>>::run(a, 9, s)
+                   : Launch<NonpressureAt<false>>::run(a, 6, s);
+    case BODY_DIVERGENCE: return Launch<Divergence>::run(a, (a.flags & FLAG_COUNT) ? 2 : 1, s);
+    case BODY_CORRECTION:
+      return rigid ? Launch<CorrectionAt<true>>::run(a, 6, s)
+                   : Launch<CorrectionAt<false>>::run(a, 3, s);
+    case BODY_DENSITY_ALPHA_DIVERGENCE:
+      return rigid ? Launch<DensityAlphaDivergence<true>>::run(a, 8, s)
+                   : Launch<DensityAlphaDivergence<false>>::run(a, 7, s);
     case BODY_RIGID_VOLUME: return Launch<RigidVolume>::run(a, 1, s);
-    case BODY_NONPRESSURE_WARM: return Launch<NonpressureWarm>::run(a, 9, s);
-    case BODY_PRESSURE: return Launch<Pressure>::run(a, 3, s);
+    case BODY_NONPRESSURE_WARM:
+      return rigid ? Launch<NonpressureWarm<true>>::run(a, 15, s)
+                   : Launch<NonpressureWarm<false>>::run(a, 9, s);
+    case BODY_PRESSURE:
+      return rigid ? Launch<Pressure<true>>::run(a, 9, s)
+                   : Launch<Pressure<false>>::run(a, 3, s);
     case BODY_PCISPH_DENSITY_PRED: return Launch<PcisphDensityPred>::run(a, 1, s);
     case BODY_IISPH_DII: return Launch<IisphDii>::run(a, 3, s);
     case BODY_IISPH_AII: return Launch<IisphAii>::run(a, 1, s);
     case BODY_IISPH_DENSITY_STAR: return Launch<IisphDensityStar>::run(a, 1, s);
     case BODY_IISPH_DIJ_PJ: return Launch<IisphDijPj>::run(a, 3, s);
     case BODY_IISPH_SUM_I: return Launch<IisphSumI>::run(a, 1, s);
+    case BODY_RIGID_CONTACT:
+      if (a.n_chan < 1 || a.n_chan > CONTACT_CHANNELS_MAX) return (int)cudaErrorInvalidValue;
+      if (a.n_chan <= CONTACT_CHANNELS_SMALL)
+        return Launch<RigidContact<CONTACT_CHANNELS_SMALL>>::run(a, 4 * a.n_chan, s);
+      if (a.n_chan <= CONTACT_CHANNELS_MEDIUM)
+        return Launch<RigidContact<CONTACT_CHANNELS_MEDIUM>>::run(a, 4 * a.n_chan, s);
+      return Launch<RigidContact<CONTACT_CHANNELS_MAX>>::run(a, 4 * a.n_chan, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,16 +15,16 @@ from __future__ import annotations
 import torch
 
 from ..core.params import SimParams
+from ..core.state import constant
 
 
 def cell_coords(pos: torch.Tensor, params: SimParams) -> torch.Tensor:
     """Integer cell coordinates (int32), clamped into the grid."""
-    start = torch.tensor(params.domain_start, dtype=torch.float32,
-                         device=pos.device)
-    q = (pos - start) / torch.tensor(params.support_radius,
-                                     dtype=torch.float32, device=pos.device)
+    start = constant(tuple(params.domain_start), torch.float32, pos.device)
+    q = (pos - start) / constant(params.support_radius, torch.float32,
+                                 pos.device)
     coords = torch.floor(q).to(torch.int32)
-    hi = torch.tensor(params.grid_num, dtype=torch.int32, device=pos.device) - 1
+    hi = constant(tuple(params.grid_num), torch.int32, pos.device) - 1
     return torch.minimum(torch.clamp_min(coords, 0), hi)
 
 

@@ -14,8 +14,11 @@ a plain version. Outputs are per row, zero on rows that do not produce; vector
 outputs come back as (N, 3).
 
 Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH):
-standard viscosity, cubic kernel, no dynamic rigid bodies (their wrench
-outputs are absent).
+standard viscosity, cubic kernel, fluid, static walls and dynamic rigid
+bodies. A body that has outputs for dynamic rigid bodies (the wrenches, the
+same-object kernel sum) adds them under the flag :data:`RIGID`, after its
+other outputs; ``rigid_contact`` has one group of outputs per contact
+channel, so its outputs depend on ``params.contact_channels``.
 """
 from __future__ import annotations
 
@@ -40,6 +43,12 @@ def _w(d2, params):
 def _gw(d2, params):
     return kernels.cubic_w_gw_d2(d2, params.support_radius, params.dim,
                                  need_w=False)[1]
+
+
+# flags: bit 0, divergence's neighbour count; bit 1, the outputs of dynamic
+# rigid bodies (wrenches, the same-object kernel sum)
+COUNT = 1
+RIGID = 2
 
 
 def _w_diam(params) -> torch.Tensor:
@@ -68,9 +77,14 @@ def alpha_body(cx, params, flags=0):
     return out
 
 
+def _rigid_dyn_i(cx):
+    return (cx.blk("material") == MATERIAL_RIGID) & (cx.blk("is_dynamic") > 0)
+
+
 def nonpressure_body(cx, params, flags=0):
     """common._nonpressure_outputs :380 (surface tension + standard
-    viscosity; no dynamic-rigid wrench)."""
+    viscosity); ``flags & RIGID`` adds the viscosity force on dynamic rigid
+    rows from their fluid neighbours, ``fpp``."""
     d2c = 2.0 * (params.dim + 2)
     diam = params.particle_diameter
     R, d2, mask = cx.geometry()
@@ -97,6 +111,13 @@ def nonpressure_body(cx, params, flags=0):
             cx.where(rigid_j, coef_b, 0.0)) * gw
     for d in range(cx.dim):
         out[f"acc{d}"] = cx.sum(coef * R[d], mask)
+    if flags & RIGID:
+        pair_ok = fluid_j & _rigid_dyn_i(cx)
+        c = d2c * params.viscosity_b * cx.blk("rest_volume") * \
+            cx.slab("mass") * inv_rho_j * inv_denom * v_xy * gw
+        c = cx.where(pair_ok, c, 0.0)
+        for d in range(cx.dim):
+            out[f"fpp{d}"] = cx.sum(c * R[d], pair_ok)
     return out
 
 
@@ -114,8 +135,9 @@ def divergence_body(cx, params, flags=0):
 
 
 def correction_body(cx, params, flags=0, pre=""):
-    """dfsph._correction_outputs :223 (no dynamic-rigid wrench); ``pre``
-    prefixes the output names."""
+    """dfsph._correction_outputs :223; ``flags & RIGID`` adds the force on
+    dynamic rigid rows from their fluid neighbours, ``fp``; ``pre`` prefixes
+    the output names."""
     eps = params.dfsph_eps * params.dt
     R, d2, mask = cx.geometry()
     gw = _gw(d2, params)
@@ -127,20 +149,31 @@ def correction_body(cx, params, flags=0, pre=""):
     rigid_j = mask & (mat_j == MATERIAL_RIGID) & (torch.abs(k_i) > eps)
     coef = (cx.where(fluid_j, kr_i + kr_j, 0.0) +
             cx.where(rigid_j, kr_i, 0.0)) * params.density0 * vgw
-    return {f"{pre}dv{d}": cx.sum(-coef * R[d], fluid_j | rigid_j)
-            for d in range(cx.dim)}
+    out = {f"{pre}dv{d}": cx.sum(-coef * R[d], fluid_j | rigid_j)
+           for d in range(cx.dim)}
+    if flags & RIGID:
+        pair_ok = mask & (mat_j == MATERIAL_FLUID) & _rigid_dyn_i(cx) & \
+            (torch.abs(k_j) > eps)
+        c = -cx.blk("rest_volume") * kr_j * params.density0 / params.dt * \
+            (cx.slab("rest_volume") * params.density0) * gw
+        c = cx.where(pair_ok, c, 0.0)
+        for d in range(cx.dim):
+            out[f"{pre}fp{d}"] = cx.sum(c * R[d], pair_ok)
+    return out
 
 
 def nonpressure_warm_body(cx, params, flags=0):
     """dfsph.nonpressure_warm_fused :306: the non-pressure sums and the
-    warm-start correction (outputs ``wdv``) in one pass."""
-    out = nonpressure_body(cx, params)
-    out.update(correction_body(cx, params, pre="w"))
+    warm-start correction (outputs ``wdv``) in one pass, and under ``flags &
+    RIGID`` both wrenches, ``fpp`` and ``wfp``."""
+    out = nonpressure_body(cx, params, flags)
+    out.update(correction_body(cx, params, flags, pre="w"))
     return out
 
 
 def density_alpha_divergence_body(cx, params, flags=0):
-    """dfsph.density_alpha_divergence :90 (no rigid pseudo-volume output)."""
+    """dfsph.density_alpha_divergence :90; ``flags & RIGID`` adds the
+    same-object kernel sum of the rigid pseudo-volumes, ``svol``."""
     R, d2, mask = cx.geometry()
     W = _w(d2, params)
     vj = cx.slab("rest_volume")
@@ -155,6 +188,9 @@ def density_alpha_divergence_body(cx, params, flags=0):
            "cnt": cx.sum(torch.ones_like(d2), mask)}
     for d in range(cx.dim):
         out[f"vec{d}"] = cx.sum(c * R[d], mask)
+    if flags & RIGID:
+        same = cx.slab("object_id") == cx.blk("object_id")
+        out["svol"] = cx.sum(cx.where(same, W, 0.0), mask)
     return out
 
 
@@ -168,8 +204,10 @@ def rigid_volume_body(cx, params, flags=0):
 
 def pressure_body(cx, params, flags=0):
     """The kern of common.pressure_acceleration :503 (symmetric pressure
-    acceleration, no dynamic-rigid wrench); ``p_rho2`` = p / max(rho^2,
-    1e-12) per particle."""
+    acceleration); ``p_rho2`` = p / max(rho^2, 1e-12) per particle.
+    ``flags & RIGID`` adds the force ``fpp`` and torque ``tpp`` on dynamic
+    rigid rows from their fluid neighbours, the torque per pair, its arm
+    the fluid particle's offset x_i - R - com_i."""
     R, d2, mask = cx.geometry()
     gw = _gw(d2, params)
     mat_j = cx.slab("material")
@@ -180,7 +218,21 @@ def pressure_body(cx, params, flags=0):
     term_b = params.density0 * cx.slab("rest_volume") * p_rho2_i
     term = (cx.where(fluid_j, term_f, 0.0) +
             cx.where(rigid_j, term_b, 0.0)) * gw
-    return {f"acc{d}": cx.sum(-term * R[d], mask) for d in range(cx.dim)}
+    out = {f"acc{d}": cx.sum(-term * R[d], mask) for d in range(cx.dim)}
+    if flags & RIGID:
+        pair_ok = fluid_j & _rigid_dyn_i(cx)
+        m_n = params.density0 * cx.slab("rest_volume")
+        c = -(params.density0 * cx.blk("rest_volume")) * \
+            cx.slab("p_rho2") * m_n * gw
+        f = [cx.where(pair_ok, c * R[d], 0.0) for d in range(3)]
+        arm = [cx.blk(f"pos{d}") - R[d] - cx.blk(f"com{d}") for d in range(3)]
+        tq = (arm[1] * f[2] - arm[2] * f[1], arm[2] * f[0] - arm[0] * f[2],
+              arm[0] * f[1] - arm[1] * f[0])
+        for d in range(3):
+            out[f"fpp{d}"] = cx.sum(f[d], pair_ok)
+        for d in range(3):
+            out[f"tpp{d}"] = cx.sum(tq[d], pair_ok)
+    return out
 
 
 def pcisph_density_pred_body(cx, params, flags=0):
@@ -272,6 +324,46 @@ def iisph_sum_i_body(cx, params, flags=0):
     return {"s": cx.sum(contrib, mask)}
 
 
+def rigid_contact_body(cx, params, flags=0):
+    """integrator.rigid_contact_data :129: on a rigid row, per contact
+    channel, the penetration-weighted sums over rigid neighbours of another
+    object within one particle diameter: the weight ``cw_<tag>`` and the
+    normal ``cn_<tag>``, pointing toward the row. ``chan`` is the channel of
+    the neighbour's object (the object's index in ``contact_channels``, the
+    last channel for static rigid objects, -1 for none)."""
+    d0 = params.particle_diameter
+    R, d2, mask = cx.geometry()
+    dist = torch.sqrt(d2)
+    touching = (cx.blk("material") == MATERIAL_RIGID) & \
+        (cx.slab("material") == MATERIAL_RIGID) & \
+        (cx.blk("object_id") != cx.slab("object_id")) & mask & (dist < d0)
+    pen = cx.where(touching, d0 - dist, 0.0)
+    inv_dist = 1.0 / torch.clamp_min(dist, 1e-9)
+    chan = cx.slab("chan")
+    out = {}
+    for c, tag in enumerate(contact_tags(params)):
+        sel = touching & (chan == c)
+        out[f"cw_{tag}"] = cx.sum(pen, sel)
+        for d in range(3):
+            out[f"cn_{tag}{d}"] = cx.sum(pen * R[d] * inv_dist, sel)
+    return out
+
+
+# one tag per dynamic body; with the static channel, 27 channels at the most
+# (CONTACT_CHANNELS_MAX in csrc/pair_bodies.cuh)
+_CHAN_TAGS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def contact_tags(params: SimParams) -> list:
+    """Output-name tags of the contact channels (integrator._chan_tags :97):
+    one letter per dynamic body, then ``st`` for all static geometry."""
+    n = len(params.contact_channels)
+    if n > len(_CHAN_TAGS):
+        raise ValueError(f"{n} dynamic rigid bodies > {len(_CHAN_TAGS)} "
+                         "contact channels")
+    return list(_CHAN_TAGS[:n]) + ["st"]
+
+
 def _vec(name):
     return tuple(f"{name}{d}" for d in range(3))
 
@@ -314,6 +406,18 @@ BODIES = {
     "iisph_sum_i": (14, iisph_sum_i_body, ("s",),
                     ("pos", "material", "rest_volume", "dii", "pressure",
                      "dij_pj", "dpi")),
+    # outputs per channel (contact_outputs); ``chan`` is a table per object
+    "rigid_contact": (15, rigid_contact_body, (),
+                      ("pos", "material", "object_id", "chan")),
+}
+# name -> (outputs a body adds under flags & RIGID, after its others; the
+#          fields they read besides the body's)
+RIGID_OUTPUTS = {
+    "nonpressure": (_vec("fpp"), ("is_dynamic",)),
+    "correction": (_vec("fp"), ("is_dynamic",)),
+    "density_alpha_divergence": (("svol",), ("object_id",)),
+    "nonpressure_warm": (_vec("fpp") + _vec("wfp"), ("is_dynamic",)),
+    "pressure": (_vec("fpp") + _vec("tpp"), ("is_dynamic", "object_id", "com")),
 }
 
 # engine -> (source in csrc/, its C entry point)
@@ -321,19 +425,44 @@ ENGINES = {"pair_pass": "sph_pair_pass", "pair_slab": "sph_pair_slab"}
 # rows per block the slab-window kernel takes (MAX_BLOCK in pair_slab.cu)
 SLAB_MAX_BLOCK = 512
 
-# kernel launches per engine and body, "pair_pass/<body>" / "pair_slab/<body>"
-launches = {f"{engine}/{name}": 0 for engine in ENGINES for name in BODIES}
+
+def launch_key(engine: str, name: str, flags: int = 0) -> str:
+    """``<engine>/<body>``, with ``+rigid`` for a launch under :data:`RIGID`."""
+    return f"{engine}/{name}{'+rigid' if flags & RIGID else ''}"
+
+
+# kernel launches per engine, body and variant (launch_key)
+launches = {launch_key(engine, name, flags): 0 for engine in ENGINES
+            for name in BODIES for flags in (0, RIGID)
+            if not flags or name in RIGID_OUTPUTS}
 
 
 def engine_of(env: PairEnv) -> str:
     return "pair_slab" if isinstance(env, SlabEnv) else "pair_pass"
 
 
-def out_names(name: str, flags: int = 0) -> tuple:
+def contact_outputs(params: SimParams) -> tuple:
+    """The outputs of ``rigid_contact``, channel by channel."""
+    return tuple(k for tag in contact_tags(params)
+                 for k in (f"cw_{tag}",) + _vec(f"cn_{tag}"))
+
+
+def out_names(name: str, params: SimParams, flags: int = 0) -> tuple:
+    if name == "rigid_contact":
+        return contact_outputs(params)
     names = BODIES[name][2]
-    if name == "divergence" and not flags & 1:
+    if name == "divergence" and not flags & COUNT:
         names = names[:1]
+    if flags & RIGID:
+        names = names + RIGID_OUTPUTS[name][0]
     return names
+
+
+def fields_of(name: str, flags: int = 0) -> tuple:
+    """The fields body ``name`` reads under ``flags``."""
+    if flags & RIGID:
+        return BODIES[name][3] + RIGID_OUTPUTS[name][1]
+    return BODIES[name][3]
 
 
 def body_constants(name: str, params: SimParams) -> list:
@@ -347,22 +476,28 @@ def body_constants(name: str, params: SimParams) -> list:
               0.01 * params.support_radius ** 2, d2c * params.viscosity,
               d2c * params.viscosity_b, params.density0]
     if name in ("correction", "nonpressure_warm"):
-        c += [params.dfsph_eps * params.dt, params.density0]
+        c += [params.dfsph_eps * params.dt, params.density0, params.dt]
     if name in ("pressure", "iisph_dii", "iisph_aii", "iisph_density_star",
                 "iisph_dij_pj", "iisph_sum_i"):
         c += [params.density0]
+    if name == "rigid_contact":
+        c += [params.particle_diameter]
     return c
 
 
 # ---- CUDA ------------------------------------------------------------------
 
 _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
-               "object_id", "rest_volume", "mass", "inv_rho", "kappa", "k_rho",
-               "pressure", "density", "p_rho2", "dpi", "inv_star2", "pred",
-               "dii", "dij_pj", "starts", "lens", "out")
-# fields a body reads: (N, 3) vectors, i32 ids; every other one (N,) f32
+               "object_id", "is_dynamic", "rest_volume", "mass", "inv_rho",
+               "kappa", "k_rho", "pressure", "density", "p_rho2", "dpi",
+               "inv_star2", "pred", "dii", "dij_pj", "com", "chan", "starts",
+               "lens", "out")
+# fields a body reads: (N, 3) vectors, i32 ids and flags, tables per object
+# (read through a row's object id; name -> trailing shape); every other one
+# (N,) f32
 _VECTORS = ("pos", "vel", "pred", "dii", "dij_pj")
-_INTS = ("material", "object_id")
+_INTS = ("material", "object_id", "is_dynamic", "chan")
+_TABLES = {"chan": (), "com": (3,)}
 N_CONST = 16
 
 
@@ -370,7 +505,8 @@ class PairArgs(ctypes.Structure):
     """ctypes mirror of ``struct PairArgs`` in csrc/pair_bodies.cuh."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _PTR_FIELDS]
                 + [(k, ctypes.c_int)
-                   for k in ("n", "gx", "gy", "gz", "flags", "block")]
+                   for k in ("n", "gx", "gy", "gz", "flags", "block",
+                             "n_chan")]
                 + [("dh2", ctypes.c_float), ("c", ctypes.c_float * N_CONST)])
 
 
@@ -386,8 +522,9 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
              flags: int = 0) -> Dict[str, torch.Tensor]:
     """Launch the pair kernel of ``env``'s engine for body ``name``; (N,)
     outputs per component."""
-    body_id, _, _, needs = BODIES[name]
-    names = out_names(name, flags)
+    body_id = BODIES[name][0]
+    needs = fields_of(name, flags)
+    names = out_names(name, params, flags)
     engine = engine_of(env)
     n = env.n
     dev = env.cells.device
@@ -416,7 +553,8 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for key in needs:
         if key not in fields:
             raise ValueError(f"pair kernel {name}: missing field {key}")
-        shape = (n, 3) if key in _VECTORS else (n,)
+        shape = ((params.max_objects,) + _TABLES[key] if key in _TABLES
+                 else (n, 3) if key in _VECTORS else (n,))
         ptr(key, fields[key],
             torch.int32 if key in _INTS else torch.float32, shape)
     ptr("cells", env.cells, torch.int32, (n,))
@@ -432,6 +570,8 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     args.n = n
     args.gx, args.gy, args.gz = env.grid
     args.flags = flags
+    if name == "rigid_contact":
+        args.n_chan = len(contact_tags(params))
     args.dh2 = env.dh2
     consts = body_constants(name, params)
     for k, v in enumerate(consts):
@@ -441,7 +581,7 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     if err != 0:
         raise RuntimeError(
             f"{engine} kernel {name}: launch failed, CUDA error {err}")
-    launches[f"{engine}/{name}"] += 1
+    launches[launch_key(engine, name, flags)] += 1
     return {k: out[r] for r, k in enumerate(names)}
 
 
@@ -449,12 +589,23 @@ def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
                    params: SimParams, produce: torch.Tensor | None = None,
                    flags: int = 0) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of body ``name`` under ``env``'s engine
-    (any device)."""
-    _, body, _, needs = BODIES[name]
+    (any device). A per-object table is read per row, through the row's
+    object id (-1 or 0 on rows of no object)."""
+    body = BODIES[name][1]
+    fk = {k: fields[k] for k in fields_of(name, flags)}
+    for k in _TABLES:
+        if k in fk:
+            obj = fields["object_id"]
+            rows = fk[k][obj.clamp(0, params.max_objects - 1).long()]
+            valid = (obj >= 0).view((-1,) + (1,) * len(_TABLES[k]))
+            fk[k] = torch.where(valid, rows, -1 if k in _INTS else 0.0)
     executor = run_plain_slab if isinstance(env, SlabEnv) else run_plain
-    return executor(lambda cx: body(cx, params, flags), env,
-                    {k: fields[k] for k in needs}, out_names(name, flags),
-                    produce=produce)
+    return executor(lambda cx: body(cx, params, flags), env, fk,
+                    out_names(name, params, flags), produce=produce)
+
+
+# the dynamic bodies of pile_up_case, as contact channels
+PILE_UP_CHANNELS = (0, 1)
 
 
 def pile_up_case(pair_block: int = 256, seed: int = 0):
@@ -469,7 +620,13 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
     kernel stages; a few particles sit in the opposite corner cell, in an
     edge cell and alone among empty cells. A fifth of the rows are rigid, the
     rest fluid (the rows that produce), and the tail up to ``n_pad`` is
-    ``MATERIAL_NONE`` rows with the sentinel cell id."""
+    ``MATERIAL_NONE`` rows with the sentinel cell id. The rows belong to
+    three objects; rigid rows of objects 0 and 1 are dynamic bodies (with a
+    body com each), those of object 2 static, so wrench and contact pairs
+    number in the hundreds. Its ``com`` table holds a com per object, its
+    ``chan`` table gives objects 0 and 1 the
+    channels of ``contact_channels=PILE_UP_CHANNELS`` and object 2 the static
+    one: run ``rigid_contact`` with those channels in the parameters."""
     h = 0.04
     gen = torch.Generator().manual_seed(seed)
 
@@ -503,6 +660,9 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
               "density": density, "inv_rho": 1.0 / density,
               "object_id": (rand(n) * 3).to(torch.int32),
               "kappa": kappa, "k_rho": kappa / density}
+    obj = fields["object_id"]
+    fields["is_dynamic"] = ((material == MATERIAL_FLUID) | (obj < 2)).to(
+        torch.int32)
     # the fields of the WCSPH, PCISPH and IISPH bodies
     pressure = 5000.0 * rand(n)
     fields.update(
@@ -514,6 +674,10 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
     cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
     perm = neighbors.sort_permutation(cells)
     fields = {k: v[perm].contiguous() for k, v in fields.items()}
+    fields["chan"] = torch.full((params.max_objects,), -1, dtype=torch.int32)
+    fields["chan"][:3] = torch.tensor([0, 1, 2], dtype=torch.int32)
+    fields["com"] = torch.zeros(params.max_objects, 3)
+    fields["com"][:2] = torch.tensor([[h, 2 * h, 1.5 * h], [2 * h, h, 2 * h]])
     return (params, cells[perm].contiguous(),
             fields["material"] == MATERIAL_FLUID, fields)
 

@@ -39,6 +39,7 @@ from typing import Callable, Dict
 import torch
 
 from ..core.params import SimParams
+from ..core.state import constant
 
 # rows x candidates per chunk of the plain executor
 PLAIN_CHUNK_ELEMS = 1 << 22
@@ -159,7 +160,7 @@ class Cx:
             R = tuple(self.blk(f"pos{d}") - self.slab(f"pos{d}")
                       for d in range(self.dim))
             d2 = sum(r * r for r in R)
-            dh2 = torch.tensor(self._dh2, dtype=d2.dtype, device=d2.device)
+            dh2 = constant(self._dh2, d2.dtype, d2.device)
             mask = self._valid & (self._cand != self._rows) & (d2 < dh2)
             if self._row_match is not None:
                 mask = mask & self._row_match

@@ -5,9 +5,14 @@ the particle arrays come out bit for bit the same. Left out:
 
 - the TPU pair engines' window-cap estimators (``estimate_slab_sizes``,
   ``estimate_su``): the port's cell-list engine has no caps;
-- dynamic rigid bodies, and deferred entries and emitters: the port does not
+- deferred entries and emitters, and the shape-matching rigid solver
+  (``rigid_solver="shape_matching"`` with dynamic bodies): the port does not
   run them yet. A scene that has them raises ``NotImplementedError`` naming
   the ROADMAP item that ports them.
+
+Dynamic rigid bodies are sampled in their own frame and placed by their
+(com, rot), as the JAX package places them (its ``scene.py`` :221-255); the
+body table holds their mass, pose and velocity (:393-425).
 
 The state is built on the CPU; ``Simulation`` moves it to its device.
 """
@@ -33,8 +38,8 @@ ASSET_ROOT = os.environ.get("SPH_ASSET_ROOT", "")
 BUILTIN_MODELS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "models_builtin")
 
-_DYNAMIC_RIGID = ("dynamic rigid bodies are not ported yet "
-                  "(ROADMAP Queue A.11, rigid bodies)")
+_SHAPE_MATCHING = ("the shape-matching rigid solver is not ported yet "
+                   "(ROADMAP Queue A.11b, shape matching)")
 _ENTRIES = ("deferred entries and emitters are not ported yet "
             "(ROADMAP Queue A.12, deferred entries and emitters)")
 
@@ -75,16 +80,26 @@ class Scene:
     rigid_object_ids: List[int] = field(default_factory=list)
 
 
-def _check_supported(cfg: SimConfig) -> None:
+def _check_supported(cfg: SimConfig, rigid_solver: str) -> None:
     if cfg.get_cfg("gravitationUpper") is not None:
         raise NotImplementedError(_ENTRIES)
     for obj in (cfg.get_fluid_blocks() + cfg.get_fluid_bodies()
                 + cfg.get_rigid_bodies()):
         if float(obj.get("entryTime", -1.0)) > 0.0:
             raise NotImplementedError(_ENTRIES)
-    for body in cfg.get_rigid_bodies():
-        if bool(body.get("isDynamic", False)):
-            raise NotImplementedError(_DYNAMIC_RIGID)
+    if rigid_solver == "shape_matching" and any(
+            bool(b.get("isDynamic", False)) for b in cfg.get_rigid_bodies()):
+        raise NotImplementedError(_SHAPE_MATCHING)
+
+
+def _euler_or_axis_rotation(body: dict, dynamic: bool) -> np.ndarray:
+    angle = float(body.get("rotationAngle", 0.0)) / 360.0 * 2.0 * math.pi
+    axis = np.asarray(body.get("rotationAxis", [0, 1, 0]), np.float64)
+    if dynamic:
+        # the Bullet path of the reference: Euler XYZ of axis * angle
+        return meshlib.rotation_matrix_euler_xyz(axis * angle)
+    # static bodies: trimesh axis-angle
+    return meshlib.rotation_matrix_axis_angle(axis, angle)
 
 
 def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
@@ -92,7 +107,8 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
     """Build params + fully-seeded initial state (on the CPU) from a scene
     JSON. Returns ``(scene, state)``."""
     cfg = config if config is not None else SimConfig(scene_file)
-    _check_supported(cfg)
+    _check_supported(cfg, param_overrides.get(
+        "rigid_solver", cfg.get_cfg("rigidSolver") or "integrator"))
 
     dim = len(cfg.get_cfg("domainEnd"))
     dx = cfg.get_cfg("particleRadius") or 0.01
@@ -214,26 +230,33 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
 
     rigid_meta: dict[int, dict] = {}
     for body in cfg.get_rigid_bodies():
-        # static bodies only (_check_supported): trimesh axis-angle placement
         obj_id = body["objectId"]
+        dynamic = bool(body.get("isDynamic", False))
         verts, faces = meshlib.load_obj(_resolve_path(body["geometryFile"]))
         verts = verts * np.asarray(body.get("scale", [1, 1, 1]), np.float64)
         translation = np.asarray(body.get("translation", [0, 0, 0]), np.float64)
-        angle = float(body.get("rotationAngle", 0.0)) / 360.0 * 2.0 * math.pi
-        R = meshlib.rotation_matrix_axis_angle(
-            np.asarray(body.get("rotationAxis", [0, 1, 0]), np.float64), angle)
-        center = verts.mean(axis=0)
-        verts = (verts - center) @ R.T + center + translation
-        body_pts = meshlib.fill_lattice(verts, faces, spacing)
-        add_chunk(obj_id, body_pts.astype(np.float32), [0.0] * dim,
-                  body.get("density", 1000.0), MATERIAL_RIGID, False,
+        R = _euler_or_axis_rotation(body, dynamic)
+        if dynamic:
+            # sampled in the body's frame, placed by (com, rot)
+            body_pts = meshlib.fill_lattice(verts, faces, spacing)
+            world_pts = body_pts @ R.T + translation
+        else:
+            center = verts.mean(axis=0)
+            verts = (verts - center) @ R.T + center + translation
+            body_pts = meshlib.fill_lattice(verts, faces, spacing)
+            world_pts = body_pts
+        vel = body.get("velocity", [0.0] * dim) if dynamic else [0.0] * dim
+        add_chunk(obj_id, world_pts.astype(np.float32), vel,
+                  body.get("density", 1000.0), MATERIAL_RIGID, dynamic,
                   body.get("entryTime", -1.0), body.get("color", (255, 255, 255)),
                   body.get("visible", 1),
                   rest_pos=body_pts.astype(np.float32),
                   mesh_vf=(verts, faces))
         rigid_ids.append(obj_id)
         rigid_meta[obj_id] = dict(
-            mass=body.get("density", 1000.0) * v0 * body_pts.shape[0])
+            dynamic=dynamic, translation=translation, rot=R,
+            vel=np.asarray(vel, np.float64),
+            mass=body.get("density", 1000.0) * v0 * world_pts.shape[0])
 
     if cfg.get_rigid_blocks():
         raise NotImplementedError("RigidBlocks (unimplemented in the reference too, "
@@ -252,10 +275,15 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
 
     n_particles = sum(c["pos"].shape[0] for c in chunks)
     kw["has_rigid"] = any(c["material"] == MATERIAL_RIGID for c in chunks)
-    kw["has_dynamic_rigid"] = False
+    kw["has_dynamic_rigid"] = any(
+        c["material"] == MATERIAL_RIGID and c["dynamic"] for c in chunks)
     kw["has_entries"] = False
+    # one exact contact channel per dynamic rigid body; static geometry shares
+    # one merged channel (rigid/integrator.py rigid_contact_data)
     if "contact_channels" not in param_overrides:
-        kw["contact_channels"] = ()
+        kw["contact_channels"] = tuple(sorted(
+            c["obj_id"] for c in chunks
+            if c["material"] == MATERIAL_RIGID and c["dynamic"]))
     if "halo_plane_max" not in param_overrides:
         # max particles in one x-cell-plane of the seeded scene (kept so the
         # two packages resolve the same parameters)
@@ -304,6 +332,11 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
     # ---- rigid body table ---------------------------------------------------
     O = params.max_objects
     r_mass = np.zeros(O, np.float32)
+    r_com = np.zeros((O, dim), np.float32)
+    r_com0 = np.zeros((O, dim), np.float32)
+    r_rot = np.tile(np.eye(dim, dtype=np.float32), (O, 1, 1))
+    r_vel = np.zeros((O, dim), np.float32)
+    r_dyn = np.zeros(O, np.int32)
     r_mat = np.zeros(O, np.int32)
     r_entry = np.full(O, -1.0, np.float32)
     r_present = np.zeros(O, np.int32)
@@ -313,11 +346,18 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
         r_present[oid] = 1 if so.entry_time <= 0.0 else 0
         r_entry[oid] = so.entry_time
         if oid in rigid_meta:
-            r_mass[oid] = rigid_meta[oid]["mass"]
+            m = rigid_meta[oid]
+            r_dyn[oid] = int(m["dynamic"])
+            r_mass[oid] = m["mass"]
+            if m["dynamic"]:
+                r_com[oid] = m["translation"]
+                r_rot[oid] = m["rot"].astype(np.float32)
+                r_vel[oid] = m["vel"]
 
     rigid: RigidState = state.rigid.replace(
-        mass=t(r_mass), obj_material=t(r_mat), entry_time=t(r_entry),
-        present=t(r_present))
+        mass=t(r_mass), com=t(r_com), com0=t(r_com0), rot=t(r_rot),
+        vel=t(r_vel), is_dynamic=t(r_dyn), obj_material=t(r_mat),
+        entry_time=t(r_entry), present=t(r_present))
     state = state.replace(particles=p, rigid=rigid)
     for oid in (cfg.get_cfg("invisibleObjects") or []):
         for so in scene_objects:

@@ -1,11 +1,12 @@
 """Simulation orchestration: the per-step sort, prepare, the step, the driver.
 
 The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH
-and IISPH (line numbers name its functions). PyTorch runs eagerly, so there
-is no jit and no scan: ``step`` runs one step and ``run`` loops over it.
-Every tensor of the state lives on the simulation's device, and the device
-defaults to ``"cuda"``; on a host without CUDA, ask for ``device="cpu"``
-explicitly.
+and IISPH, over fluid, static walls and dynamic rigid bodies with the
+integrator backend (line numbers name its functions). PyTorch runs eagerly,
+so there is no jit and no scan: ``step`` runs one step and ``run`` loops over
+it. Every tensor of the state lives on the simulation's device, and the
+device defaults to ``"cuda"``; on a host without CUDA, ask for
+``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ import importlib
 
 import torch
 
-from .core.params import MATERIAL_FLUID, MATERIAL_NONE, SimParams
+from .core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
+                          SimParams)
 from .core.state import ParticleState, RigidState, SimState
 from .ops import neighbors as nblib
 from .ops import pairs
 from .ops import permute as permlib
+from .rigid import integrator as rigidlib
 from .solvers import common
 
 
@@ -36,6 +39,10 @@ def _check_ported(params: SimParams) -> None:
     if params.has_entries:
         raise NotImplementedError("deferred entries and emitters are not "
                                   "ported yet (ROADMAP Queue A.12)")
+    if params.has_dynamic_rigid and params.rigid_solver != "integrator":
+        raise NotImplementedError(
+            f"rigid_solver={params.rigid_solver!r} is not ported yet "
+            "(ROADMAP Queue A.11b, shape matching)")
 
 
 def permuted_keys(params: SimParams) -> tuple:
@@ -76,12 +83,13 @@ def sort_state(state: SimState, params: SimParams):
 
 def produces_output(p: ParticleState, rigid: RigidState,
                     params: SimParams) -> torch.Tensor:
-    """Rows whose pair sums are ever read (:159): the fluid rows, as there
-    are no dynamic rigid bodies on this path."""
-    if params.has_dynamic_rigid:
-        raise NotImplementedError("dynamic rigid bodies are not ported yet "
-                                  "(ROADMAP Queue A.11, rigid bodies)")
-    return p.material == MATERIAL_FLUID
+    """Rows whose pair sums are ever read (:159): the fluid rows and the
+    particles of dynamic rigid bodies."""
+    fluid = p.material == MATERIAL_FLUID
+    if not params.has_dynamic_rigid:
+        return fluid
+    obj_mat = rigid.obj_material[common.object_index(p, params)]
+    return fluid | ((p.is_dynamic > 0) & (obj_mat == MATERIAL_RIGID))
 
 
 def build_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
@@ -114,11 +122,34 @@ class Plumbing:
         return p.replace(acc=acc + a_v), rigid
 
     @staticmethod
-    def rigid_and_tail(state: SimState, params: SimParams) -> SimState:
-        """The feed-forward methods' step ending (:341) with static walls
-        only: the domain clamp of the fluid, then time and step count."""
+    def rigid_mid(state: SimState, env: pairs.PairEnv,
+                  params: SimParams) -> SimState:
+        """Rigid dynamics mid-step (:295, integrator backend): the contact
+        pass over the dynamic bodies' particles on ``env`` (whose sort their
+        positions still match), the body step, which consumes the
+        accumulated wrench, then the particles placed at their bodies' new
+        poses. Nothing to do without dynamic bodies."""
+        if not params.has_dynamic_rigid:
+            return state
+        p, rigid = state.particles, state.rigid
+        contact = (rigidlib.rigid_contact_data(p, rigid, env, params)
+                   if params.contact_channels else None)
+        rigid = rigidlib.rigid_body_step(p, rigid, params, contact=contact)
+        p = common.renew_rigid_particle_state(p, rigid, params)
+        return state.replace(particles=p, rigid=rigid)
+
+    @staticmethod
+    def rigid_and_tail(state: SimState, env: pairs.PairEnv,
+                       params: SimParams) -> SimState:
+        """The feed-forward methods' step ending (:341): rigid_mid, the
+        domain clamp of the fluid, the dynamic rigid particles' volumes at
+        their new positions (on ``env``, sorted before they moved), then
+        time and step count."""
+        state = Plumbing.rigid_mid(state, env, params)
         p = common.enforce_domain_boundary(state.particles, params,
                                            MATERIAL_FLUID)
+        if params.has_dynamic_rigid:
+            p = common.compute_rigid_particle_volume(p, env, params)
         return state.replace(particles=p, t=state.t + params.dt,
                              step_count=state.step_count + 1)
 
@@ -182,10 +213,14 @@ def get_step_fn(params: SimParams):
 
 
 def prepare(state: SimState, params: SimParams) -> SimState:
-    """Initial setup (:447): sort, the Akinci volumes of the rigid particles,
-    then, for DFSPH only, density and alpha. Every object of a loadable scene
-    is present from t = 0, so there is nothing to activate."""
+    """Initial setup (:447): the dynamic rigid particles placed at their
+    bodies' poses, sort, the Akinci volumes of the rigid particles, then, for
+    DFSPH only, density and alpha. Every object of a loadable scene is
+    present from t = 0, so there is nothing to activate."""
     _check_ported(params)
+    if params.has_dynamic_rigid:
+        state = state.replace(particles=common.renew_rigid_particle_state(
+            state.particles, state.rigid, params))
     state, env = Plumbing.neighbor_prep(state, params)
     p = state.particles
     if params.has_rigid:

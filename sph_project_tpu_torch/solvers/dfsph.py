@@ -1,7 +1,8 @@
 """DFSPH: constant-density and divergence-free correctors, cold and warm.
 
 The JAX package's ``solvers/dfsph.py`` (line numbers below name its
-functions) for standard viscosity and no dynamic rigid bodies. The corrector
+functions) for standard viscosity, with the fluid->rigid wrenches of dynamic
+bodies carried through both correctors (``rf``, ``rt``). The corrector
 loops keep the JAX loop conditions (cold: at least one iteration, then until
 the error averaged over ALL active particles, walls included, is under
 tolerance or the iteration cap is hit; warm: the correction from the carried
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import MATERIAL_FLUID, MATERIAL_NONE, SimParams
-from ..core.state import ParticleState, RigidState, SimState
+from ..core.state import ParticleState, RigidState, SimState, constant
 from ..ops import kernels
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
@@ -49,18 +50,23 @@ def _deficiency_guard(s, cnt, p: ParticleState, params: SimParams):
 def density_alpha_divergence(p: ParticleState, env: PairEnv,
                              params: SimParams):
     """Density, alpha and the divergence solver's initial density derivative
-    in one pair pass (:90). Returns (density, alpha, deriv0)."""
+    in one pair pass (:90), and with dynamic rigid bodies the same-object
+    kernel sum of their pseudo-volumes (positions do not move between the
+    sort and the step's end). Returns (density, alpha, deriv0, svol or
+    None)."""
     out = pair_kernels.run("density_alpha_divergence", env,
                            {"pos": p.pos, "vel": p.vel,
                             "rest_volume": p.rest_volume,
-                            "material": p.material}, params)
+                            "material": p.material,
+                            "object_id": p.object_id}, params,
+                           flags=common.wrench_flags(params))
     dens = (p.rest_volume * kernels.W0(params.support_radius, params.dim,
                                        params.kernel_type)
             + out["sd"]) * params.density0
     dens = torch.where(p.material == MATERIAL_FLUID, dens, p.density)
     alpha = _alpha_from_sums(out["sum_sq"], out["vec"], p)
     deriv0 = _deficiency_guard(out["sv"], out["cnt"], p, params)
-    return dens, alpha, deriv0
+    return dens, alpha, deriv0, out.get("svol")
 
 
 def _divergence_sum(p: ParticleState, vel: torch.Tensor, env: PairEnv,
@@ -96,8 +102,7 @@ def warm_factor(p: ParticleState, params: SimParams) -> torch.Tensor:
     and both gates are open: the carried largest fluid density is within
     ``dfsph_warm_gate`` of rest, and the particle itself moves less than
     ``dfsph_warm_quiet_cfl`` diameters this step."""
-    wf = torch.tensor(params.dfsph_warm_factor, dtype=torch.float32,
-                      device=p.pos.device)
+    wf = constant(params.dfsph_warm_factor, torch.float32, p.pos.device)
     if params.dfsph_warm_factor_hi > 0.0:
         fluid_i = p.material == MATERIAL_FLUID
         rho_mx = common.global_max(
@@ -107,10 +112,8 @@ def warm_factor(p: ParticleState, params: SimParams) -> torch.Tensor:
         v2 = torch.sum(p.vel * p.vel, dim=-1)
         v_lim = (params.dfsph_warm_quiet_cfl * params.particle_diameter
                  / params.dt)
-        quiet_i = v2 <= torch.tensor(v_lim * v_lim, dtype=torch.float32,
-                                     device=v2.device)
-        hi = torch.tensor(params.dfsph_warm_factor_hi, dtype=torch.float32,
-                          device=v2.device)
+        quiet_i = v2 <= constant(v_lim * v_lim, torch.float32, v2.device)
+        hi = constant(params.dfsph_warm_factor_hi, torch.float32, v2.device)
         wf = torch.where(quiet_g & quiet_i, hi, wf)
     return wf
 
@@ -130,24 +133,30 @@ def _correction_fields(p: ParticleState, kappa: torch.Tensor) -> dict:
     """The fields the correction pair body reads."""
     return {"pos": p.pos, "material": p.material,
             "rest_volume": p.rest_volume, "kappa": kappa,
-            "k_rho": kappa / torch.clamp_min(p.density, 1e-12)}
+            "k_rho": kappa / torch.clamp_min(p.density, 1e-12),
+            "is_dynamic": p.is_dynamic}
 
 
-def _correction_reduce(dv: torch.Tensor, p: ParticleState, rigid: RigidState):
+def _correction_reduce(out: dict, p: ParticleState, rigid: RigidState,
+                       params: SimParams, pre: str = ""):
     """The correction sums as (dv on fluid rows, rigid force, rigid torque)
     (:260); the wrench is zero without dynamic rigid bodies."""
     fluid_i = p.material == MATERIAL_FLUID
+    dv = out[f"{pre}dv"]
     dv = torch.where(fluid_i[:, None], dv, torch.zeros_like(dv))
-    return dv, torch.zeros_like(rigid.force), torch.zeros_like(rigid.torque)
+    if not params.has_dynamic_rigid:
+        return dv, torch.zeros_like(rigid.force), torch.zeros_like(rigid.torque)
+    return (dv, *common.wrench_of(out[f"{pre}fp"], p, rigid, params))
 
 
 def _correction(p: ParticleState, rigid: RigidState, kappa: torch.Tensor,
                 env: PairEnv, params: SimParams):
-    """Velocity correction of one corrector iteration (:280, with :223
-    _correction_outputs). Returns (dv, rigid force, rigid torque)."""
+    """Velocity correction and fluid->rigid wrench of one corrector
+    iteration (:280, with :223 _correction_outputs). Returns (dv, rigid
+    force, rigid torque)."""
     out = pair_kernels.run("correction", env, _correction_fields(p, kappa),
-                           params)
-    return _correction_reduce(out["dv"], p, rigid)
+                           params, flags=common.wrench_flags(params))
+    return _correction_reduce(out, p, rigid, params)
 
 
 def nonpressure_warm_fused(p: ParticleState, rigid: RigidState,
@@ -160,9 +169,10 @@ def nonpressure_warm_fused(p: ParticleState, rigid: RigidState,
     warm force, warm torque)."""
     fields = common.nonpressure_fields(p)
     fields.update(_correction_fields(p, kappa_w))
-    out = pair_kernels.run("nonpressure_warm", env, fields, params)
+    out = pair_kernels.run("nonpressure_warm", env, fields, params,
+                           flags=common.wrench_flags(params))
     a, vf, vt = common.nonpressure_reduce(out, p, rigid, params)
-    dv, wf, wt = _correction_reduce(out["wdv"], p, rigid)
+    dv, wf, wt = _correction_reduce(out, p, rigid, params, pre="w")
     return a, vf, vt, dv, wf, wt
 
 
@@ -288,18 +298,24 @@ def step(state: SimState, params: SimParams, plumbing):
     p, rigid, itr_d, err_d, kacc = _nonpressure_and_density_solve(
         p, rigid, state, env0, params, plumbing)
     p = common.update_fluid_position(p, params)
-    p = common.enforce_domain_boundary(p, params, MATERIAL_FLUID)
     state = state.replace(particles=p, rigid=rigid)
     if params.dfsph_warm_start:
         state = state.replace(dfsph_kappa=kacc)
+    state = plumbing.rigid_mid(state, env0, params)
+    p = common.enforce_domain_boundary(state.particles, params,
+                                       MATERIAL_FLUID)
+    state = state.replace(particles=p)
 
     state, env = plumbing.neighbor_prep(state, params)
     p = state.particles
-    dens, alpha, deriv0 = density_alpha_divergence(p, env, params)
+    dens, alpha, deriv0, svol = density_alpha_divergence(p, env, params)
     p = p.replace(density=dens)
     p, rigid, itr_v, err_v, kacc_v = correct_divergence_error(
         p, state.rigid, alpha, env, params, deriv0=deriv0,
         kappa_v0=state.dfsph_kappa_v if params.dfsph_warm_start_div else None)
+    # the step's end (:612): rigid volumes from the sum the pass above took
+    if params.has_dynamic_rigid:
+        p = common.apply_rigid_volume(p, svol, params)
 
     state = state.replace(
         particles=p, rigid=rigid, dfsph_alpha=alpha, cached_neighbors=env,
@@ -309,9 +325,9 @@ def step(state: SimState, params: SimParams, plumbing):
         state = state.replace(dfsph_kappa_v=kacc_v)
     dev = p.pos.device
     diag = plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=torch.tensor(itr_d, dtype=torch.int32, device=dev),
+        solver_iters=constant(itr_d, torch.int32, dev),
         solver_err=err_d.to(dev) * params.density0,
-        div_iters=torch.tensor(itr_v, dtype=torch.int32, device=dev),
+        div_iters=constant(itr_v, torch.int32, dev),
         div_err=err_v.to(dev),
     ))
     return state, diag

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
-from ..core.state import ParticleState, SimState
+from ..core.state import ParticleState, SimState, constant
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
@@ -109,14 +109,16 @@ def step(state: SimState, params: SimParams, plumbing):
     pressure, itr, err = refine(p, dii, aii, dpi, density_star, env, params)
     p = p.replace(pressure=pressure)
 
-    acc = common.pressure_acceleration(p, env, params)
+    acc, rf, rt = common.pressure_acceleration(
+        p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
+    rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
     p = common.update_fluid_position(p, params)
 
     state = plumbing.rigid_and_tail(
         state.replace(particles=p, rigid=rigid,
-                      iisph_density_star=density_star), params)
+                      iisph_density_star=density_star), env, params)
     dev = p.pos.device
     return state, plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=torch.tensor(itr, dtype=torch.int32, device=dev),
+        solver_iters=constant(itr, torch.int32, dev),
         solver_err=err.to(dev) * params.density0))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
-from ..core.state import ParticleState, SimState
+from ..core.state import ParticleState, RigidState, SimState, constant
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
@@ -73,8 +73,8 @@ def density_star_predicted(p: ParticleState, pred: torch.Tensor,
     return star, err
 
 
-def refine(p: ParticleState, env: PairEnv, params: SimParams,
-           k_pci: float):
+def refine(p: ParticleState, rigid: RigidState, env: PairEnv,
+           params: SimParams, k_pci: float):
     """The prediction-correction loop (:97). Returns (pressure, iterations,
     final density error)."""
     fluid_i = p.material == MATERIAL_FLUID
@@ -90,8 +90,8 @@ def refine(p: ParticleState, env: PairEnv, params: SimParams,
         pressure = pressure + k_pci * (params.density0 - star)
         pressure = torch.where(fluid_i, torch.clamp_min(pressure, 0.0),
                                torch.zeros_like(pressure))
-        p_acc = common.pressure_acceleration(p, env, params,
-                                             pressure=pressure)
+        p_acc, _, _ = common.pressure_acceleration(p, rigid, env, params,
+                                                   pressure=pressure)
         pred_v = torch.where(fluid, p.vel + params.dt * (p.acc + p_acc),
                              pred_v)
         pred_x = torch.where(fluid, p.pos + params.dt * pred_v, pred_x)
@@ -107,15 +107,17 @@ def step(state: SimState, params: SimParams, plumbing):
     p = p.replace(density=common.compute_density(p, env, params))
     p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, params)
 
-    pressure, itr, err = refine(p, env, params, k_pci)
+    pressure, itr, err = refine(p, rigid, env, params, k_pci)
     p = common.update_fluid_velocity(p.replace(pressure=pressure), params)
-    acc = common.pressure_acceleration(p, env, params)
+    acc, rf, rt = common.pressure_acceleration(
+        p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
+    rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
     p = common.update_fluid_position(p, params)
 
     state = plumbing.rigid_and_tail(state.replace(particles=p, rigid=rigid),
-                                    params)
+                                    env, params)
     dev = p.pos.device
     return state, plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=torch.tensor(itr, dtype=torch.int32, device=dev),
+        solver_iters=constant(itr, torch.int32, dev),
         solver_err=err.to(dev) * params.density0))

@@ -32,10 +32,12 @@ def step(state: SimState, params: SimParams, plumbing):
     p = common.update_fluid_velocity(p, params)
 
     p = compute_pressure(p, params)
-    acc = common.pressure_acceleration(p, env, params)
+    acc, rf, rt = common.pressure_acceleration(
+        p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
+    rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
     p = common.update_fluid_position(p, params)
 
     state = plumbing.rigid_and_tail(state.replace(particles=p, rigid=rigid),
-                                    params)
+                                    env, params)
     return state, plumbing.diagnostics(state, env, params)

@@ -31,6 +31,7 @@ print("FOREIGN", bad)
 
 def _probe(overrides, env_type):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"   # as the test processes (test_torch_scene)
     out = subprocess.run([sys.executable, "-c",
                           _PROBE % (overrides, env_type)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
@@ -48,10 +49,64 @@ def test_port_imports_no_jax_warm_slab():
                 dfsph_warm_start=True, dfsph_warm_start_div=True), "SlabEnv")
 
 
+# the same on a small scene with a dynamic body (cube falling into a pool in
+# the domain box): the integrator, the contact pass and the wrenches run
+_PROBE_RIGID = """
+import sys
+from sph_project_tpu_torch.scene import load_scene
+from sph_project_tpu_torch.sim import Simulation
+from sph_project_tpu_torch.utils.config import SimConfig
+scene, state = load_scene(config=SimConfig(config=%r))
+assert scene.params.has_dynamic_rigid and scene.params.contact_channels
+sim = Simulation(scene, state, device="cpu")
+assert type(sim.state.cached_neighbors).__name__ == "PairEnv"
+com0 = sim.state.rigid.com[1].clone()
+diag = sim.step()
+assert not bool((sim.state.rigid.com[1] == com0).all())
+assert "sph_project_tpu_torch.rigid.integrator" in sys.modules
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_port_imports_no_jax_rigid(tmp_path):
+    cube = tmp_path / "cube.obj"
+    h = 0.03
+    with open(cube, "w") as f:
+        for x in (-h, h):
+            for y in (-h, h):
+                for z in (-h, h):
+                    f.write(f"v {x} {y} {z}\n")
+        for q in ((1, 2, 4, 3), (5, 7, 8, 6), (1, 5, 6, 2), (3, 4, 8, 7),
+                  (1, 3, 7, 5), (2, 6, 8, 4)):
+            f.write("f " + " ".join(map(str, q)) + "\n")
+    config = {
+        "Configuration": {
+            "domainStart": [0, 0, 0], "domainEnd": [0.3, 0.3, 0.3],
+            "addDomainBox": True, "particleRadius": 0.01, "density0": 1000,
+            "gravitation": [0, -9.81, 0], "simulationMethod": "dfsph",
+            "viscosityMethod": "standard", "timeStepSize": 1e-3,
+            "viscosity": 0.05, "viscosity_b": 0.03},
+        "FluidBlocks": [{"objectId": 0, "start": [0.08, 0.08, 0.08],
+                         "end": [0.22, 0.13, 0.22], "velocity": [0, 0, 0]}],
+        "RigidBodies": [{"objectId": 1, "geometryFile": str(cube),
+                         "translation": [0.15, 0.175, 0.15],
+                         "velocity": [0, -1.5, 0], "density": 500.0,
+                         "isDynamic": True}]}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE_RIGID % (config,)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
 @pytest.mark.parametrize("scene,overrides,item", [
     ("smoke_test.json", dict(simulation_method="pbf"), "A.9b"),
     ("smoke_test.json", dict(viscosity_method="implicit"), "A.10"),
-    ("dragon_bath_wcsph.json", {}, "A.11"),
+    ("dragon_bath_wcsph.json", dict(rigid_solver="shape_matching"), "A.11b"),
 ], ids=["pbf", "implicit_viscosity", "dynamic_rigid"])
 def test_unported_features_raise(scene, overrides, item):
     """What the port does not run yet raises, naming its ROADMAP item, when

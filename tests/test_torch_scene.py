@@ -15,6 +15,7 @@ from sph_project_tpu.scene import load_scene as jax_load_scene
 from sph_project_tpu.utils.config import SimConfig as JaxSimConfig
 
 from sph_project_tpu_torch import bridge
+from sph_project_tpu_torch import sim as tsim
 from sph_project_tpu_torch.core import state as tstate
 from sph_project_tpu_torch.scene import load_scene as torch_load_scene
 from sph_project_tpu_torch.utils.config import SimConfig as TorchSimConfig
@@ -34,6 +35,12 @@ def _warm_up_vector_math():
 
 
 _warm_up_vector_math()
+# One intra-op thread per test process. The suite runs in several worker
+# processes at once, and torch's CPU thread pool, oversubscribed by them,
+# spins: a CPU step of the small domain-box scene (IISPH, slab-window engine)
+# took 0.1-0.3 s alone and 23-84 s with six such processes of 8 threads
+# each, 0.3-1.4 s with six of one thread. Every port test imports this module.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(ROOT, "data", "scenes")
@@ -88,12 +95,38 @@ def _scene_config(name):
     return TorchSimConfig(os.path.join(SCENES, name)).config
 
 
+def three_cubes_config(cube_obj: str) -> dict:
+    """tests/test_rigid.py's three-box squeeze: three dynamic cubes."""
+    from test_rigid import base_cfg, rigid_body
+    return {"Configuration": base_cfg(gravity=(0, 0, 0)),
+            "RigidBodies": [
+                rigid_body(0, cube_obj, (0.17, 0.3, 0.3), vel=(0.8, 0, 0)),
+                rigid_body(1, cube_obj, (0.30, 0.3, 0.3)),
+                rigid_body(2, cube_obj, (0.43, 0.3, 0.3), vel=(-0.8, 0, 0))]}
+
+
 # high_viscosity_bunny: an OBJ fluid body and a static OBJ rigid body, filled
-# by the port's numpy inside test (the JAX package may use its C++ helper)
+# by the port's numpy inside test (the JAX package may use its C++ helper);
+# dragon_bath_dfsph (two dynamic dragons in their Euler-XYZ poses, 589,824
+# slots), coupling_dfsph (a duck and two spheres), coupling_nine_rigid (nine
+# dynamic bodies, 1,094,656 slots) and the three cubes: dynamic bodies
+# sampled in their own frames, their body table (mass, com, rotation,
+# velocity) and the contact channels
+_DYNAMIC_SCENES = ("dragon_bath_dfsph.json", "coupling_dfsph.json",
+                   "coupling_nine_rigid.json", "three_cubes")
+
+
 @pytest.mark.parametrize("name", ["smoke_test.json", "dam_break_demo.json",
-                                  "high_viscosity_bunny.json", "box"])
-def test_load_scene_bit_equal(name):
-    config = box_config() if name == "box" else _scene_config(name)
+                                  "high_viscosity_bunny.json", "box",
+                                  *_DYNAMIC_SCENES])
+def test_load_scene_bit_equal(name, tmp_path):
+    if name == "box":
+        config = box_config()
+    elif name == "three_cubes":
+        from test_rigid import write_cube_obj
+        config = three_cubes_config(write_cube_obj(str(tmp_path / "cube.obj")))
+    else:
+        config = _scene_config(name)
     js, jst, ts, tst = load_both(config)
     a = flatten_jax_state(jst)
     b = bridge.state_to_numpy(tst)
@@ -107,6 +140,12 @@ def test_load_scene_bit_equal(name):
             assert jp[k] == tp[k], k
     assert [o.particle_num for o in js.objects] == \
         [o.particle_num for o in ts.objects]
+    if name in _DYNAMIC_SCENES:
+        assert ts.params.has_dynamic_rigid and ts.params.contact_channels
+        assert callable(tsim.get_step_fn(ts.params))   # the step is ported
+        dyn = (b["particles.is_dynamic"] > 0) & (b["particles.material"] == 2)
+        assert dyn.sum() > 0 and (b["rigid.mass"][
+            list(ts.params.contact_channels)] > 0).all()
 
 
 def test_box_scene_has_walls():
@@ -128,6 +167,20 @@ def test_bridge_round_trip():
     assert float(moved.t) == 1.0 and float(st.t) == 0.0
 
 
+def test_bridge_round_trip_rigid(tmp_path):
+    """The bridge carries dynamic bodies row for row: their rest positions
+    and the body table (pose, velocity, mass, flags) of the JAX state."""
+    from test_rigid import write_cube_obj
+    cfg = three_cubes_config(write_cube_obj(str(tmp_path / "cube.obj")))
+    js, jst, ts, _ = load_both(cfg)
+    flat = flatten_jax_state(jst)
+    back = bridge.state_to_numpy(bridge.state_from_numpy(flat, ts.params))
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
+    assert (flat["rigid.is_dynamic"][:3] == 1).all()
+    assert np.abs(flat["particles.rigid_rest_pos"]).max() > 0
+
+
 def test_bridge_rejects_wrong_size():
     _, jst, ts, _ = load_both(box_config())
     flat = flatten_jax_state(jst)
@@ -136,8 +189,13 @@ def test_bridge_rejects_wrong_size():
         bridge.state_from_numpy(flat, ts.params)
 
 
-@pytest.mark.parametrize("name,item", [("coupling_dfsph.json", "A.11"),
-                                       ("buckling_emitter_small.json", "A.12")])
+# dynamic rigid bodies load; under the shape-matching solver (A.11b) they
+# raise, as deferred entries and emitters do (the ids name the queue items
+# the scenes waited on when these cases were written)
+@pytest.mark.parametrize("name,item", [
+    pytest.param("coupling_dfsph.json", "A.11b", id="coupling_dfsph.json-A.11"),
+    ("buckling_emitter_small.json", "A.12")])
 def test_unported_scenes_raise(name, item):
+    overrides = {"coupling_dfsph.json": dict(rigid_solver="shape_matching")}
     with pytest.raises(NotImplementedError, match=item):
-        torch_load_scene(os.path.join(SCENES, name))
+        torch_load_scene(os.path.join(SCENES, name), **overrides.get(name, {}))

@@ -23,6 +23,7 @@ from sph_project_tpu.solvers import dfsph as jdfsph
 from sph_project_tpu_torch import sim as tsim
 from sph_project_tpu_torch.ops import pair_kernels
 from sph_project_tpu_torch.ops import pairs as tpairs
+from sph_project_tpu_torch.rigid.integrator import channel_table
 from sph_project_tpu_torch.solvers import common as tcommon
 
 import test_torch_pairs as cell_tests
@@ -99,8 +100,8 @@ def test_slab_pass_matches_pallas_kernel(monkeypatch):
 
 
 def _fields(s):
-    """The fields of every body; those of WCSPH, PCISPH and IISPH made from
-    a seed with numpy."""
+    """The fields of every body; those of WCSPH, PCISPH and IISPH and the
+    body coms made from a seed with numpy."""
     p = s.tp
     n = s.params.n_pad
     rng = np.random.default_rng(6)
@@ -121,7 +122,10 @@ def _fields(s):
             "inv_star2": 1.0 / seeded(rng.uniform(900.0, 1100.0, n)) ** 2,
             "pred": p.pos + seeded(rng.uniform(-0.003, 0.003, (n, 3))),
             "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
-            "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3)))}
+            "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3))),
+            "is_dynamic": p.is_dynamic,
+            "com": seeded(rng.uniform(0.0, 0.3, (s.params.max_objects, 3))),
+            "chan": channel_table(s.trigid, s.params)}
 
 
 @pytest.mark.parametrize("name", list(pair_kernels.BODIES))

@@ -52,7 +52,7 @@ def check_pressure_pass(s, pr):
     j, _, _ = jcommon.pressure_acceleration(jp, s.jrigid, s.jenv, jsl,
                                             s.jparams, with_wrench=False)
     tp = s.tp.replace(pressure=torch.from_numpy(pr[s.perm]))
-    t = tcommon.pressure_acceleration(tp, s.tenv, s.params)
+    t, _, _ = tcommon.pressure_acceleration(tp, s.trigid, s.tenv, s.params)
     assert np.abs(np.asarray(j)).max() > 0
     assert_pass_close(t.numpy(), s.j(j), "pressure acceleration")
 
