@@ -24,6 +24,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    dynamic dragons) under each method through both kernels (DFSPH cold and
    warm), and ``coupling_nine_rigid.json`` (1,094,656 slots, nine dynamic
    bodies, ten contact channels) under DFSPH through the cell-list kernel.
+   Then the viscous paths, DFSPH cold with implicit viscosity:
+   ``high_viscosity_implicit.json`` (447,488 slots) and
+   ``high_viscosity_bunny.json`` (1,010,688) through both kernels,
+   ``buckling_emitter.json`` (2,288,640) and ``coiling_emitter.json``
+   (1,948,672, whose streams reach the emitter height after 13 steps)
+   through the cell-list kernel; each step also prints the CG iterations, its
+   residual and the largest |visc_x|, and the matvec must launch once more
+   than the CG iterates. On the emitter paths the fluid count never falls
+   and ends above 0, and the density band, with a floor of
+   ``EMITTER_DENSITY_LOW``, holds for the densest particle (a stream 3-4
+   particles across is mostly surface).
    Launch counts are zeroed just before each path and read just after; every
    kernel the path should run must have launched, and no other (a body run
    with the outputs of dynamic rigid bodies counts as ``<body>+rigid``), and
@@ -56,7 +67,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    state, whose dynamic rows of two bodies and static rows of a third give
    hundreds of wrench and contact pairs, and on the ``dragon_bath`` states
    the DFSPH paths left: against their plain versions, the two kernels
-   bit-equal, with each variant's times and bound;
+   bit-equal, with each variant's times and bound. Then the implicit
+   viscosity's two passes (``visc_prep``, ``visc_matvec``, also in the
+   pile-up check, where rigid neighbours add to b) on the states the
+   ``high_viscosity_implicit`` paths left, timed, the engines bit-equal;
 5. the small domain-box scene for ``SMALL_STEPS`` steps on the CPU (plain
    versions) and on the card (kernels): DFSPH cold through the cell-list
    engine, warm through it and warm through the slab-window engine, then
@@ -65,7 +79,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    Then two small coupled scenes the same way: a dynamic cube dropped into a
    fluid pool in the domain box (DFSPH for ``SMALL_STEPS`` steps, the other
    methods for ``COUPLED_STEPS``) and three cubes squeezed together in zero
-   gravity (WCSPH, ``SQUEEZE_STEPS``), each body's state compared every step;
+   gravity (WCSPH, ``SQUEEZE_STEPS``), each body's state compared every step.
+   Then two small implicit-viscosity scenes the same way: the domain box
+   (viscosity 2000: 830 CG iterations at impact) and a column falling
+   through an emitter height, with the iteration counts, the CG's and the
+   fluid count equal every step;
 6. one JSON line with every kernel record, the card line again, then the
    result.
 
@@ -95,7 +113,12 @@ COUNTS = {"large_scale_dfsph.json": (None, None, 0),
           "dragon_bath_wcsph.json": (321750, 259197, 42918),
           "dragon_bath_pcisph.json": (321750, 259197, 42918),
           "dragon_bath_iisph.json": (321750, 259197, 42918),
-          "coupling_nine_rigid.json": (790020, 299780, 9926)}
+          "coupling_nine_rigid.json": (790020, 299780, 9926),
+          "high_viscosity_implicit.json": (153125, 289854, 0),
+          "high_viscosity_bunny.json": (172213, 829512, 0),
+          # fluid at load: prepare makes the part above g_upper placeholders
+          "buckling_emitter.json": (106400, 2175303, 0),
+          "coiling_emitter.json": (99880, 1843674, 0)}
 FLAGSHIP_PARTICLES = 1958454
 # the bodies each method's path runs; prepare adds rigid_volume (the walls)
 DFSPH_BODIES = ("density", "alpha", "nonpressure", "divergence", "correction",
@@ -141,11 +164,34 @@ PATHS = (("DFSPH cold, cell-list kernel", "large_scale_dfsph.json", {}, 4),
          ("dragon_bath IISPH, cell-list kernel", "dragon_bath_iisph.json", {}, 2),
          ("dragon_bath IISPH, slab-window kernel", "dragon_bath_iisph.json", SLAB, 1),
          ("coupling_nine_rigid DFSPH cold, cell-list kernel",
-          "coupling_nine_rigid.json", {}, 2))
+          "coupling_nine_rigid.json", {}, 2),
+         ("high_viscosity_implicit DFSPH cold, cell-list kernel",
+          "high_viscosity_implicit.json", {}, 2),
+         ("high_viscosity_implicit DFSPH cold, slab-window kernel",
+          "high_viscosity_implicit.json", SLAB, 2),
+         ("high_viscosity_bunny DFSPH cold, cell-list kernel",
+          "high_viscosity_bunny.json", {}, 2),
+         ("high_viscosity_bunny DFSPH cold, slab-window kernel",
+          "high_viscosity_bunny.json", SLAB, 1),
+         ("buckling_emitter DFSPH cold, cell-list kernel",
+          "buckling_emitter.json", {}, 2),
+         ("coiling_emitter DFSPH cold, cell-list kernel",
+          "coiling_emitter.json", {}, 16))
 MEASURED = ("DFSPH cold, cell-list kernel", "DFSPH warm start, slab-window kernel",
             "IISPH, cell-list kernel", "IISPH, slab-window kernel")
 COUPLED_MEASURED = ("dragon_bath DFSPH cold, cell-list kernel",
                     "dragon_bath DFSPH cold, slab-window kernel")
+VISCOUS_MEASURED = ("high_viscosity_implicit DFSPH cold, cell-list kernel",
+                    "high_viscosity_implicit DFSPH cold, slab-window kernel")
+# the two passes of the implicit viscosity solve
+VISCOUS_BODIES = ("visc_prep", "visc_matvec")
+# the floor of the density band for the densest fluid particle of an emitter
+# path. Its stream is 3-4 particles across, so most of its particles lie on
+# the surface and miss neighbours (mean density 0.57-0.71 rho0 in CPU runs of
+# the small emitter scenes), and its first particles below the emitter
+# height have none below them: 0.68 rho0 at the densest on
+# coiling_emitter.json's first delivery on the H100
+EMITTER_DENSITY_LOW = 0.5
 SMALL_STEPS = 20
 COUPLED_STEPS = 10
 SQUEEZE_STEPS = 45
@@ -183,6 +229,10 @@ OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
                 "pcisph_density_pred": 21, "iisph_dii": 25, "iisph_aii": 33,
                 "iisph_density_star": 24, "iisph_dij_pj": 26,
                 "iisph_sum_i": 47, "rigid_contact": 5}
+# the viscous passes' operations per pair by the neighbour's material,
+# (fluid j, rigid j): the matvec leaves a rigid j out after one compare, the
+# prep adds b's rigid term for it
+VISC_OPS = {"visc_prep": (42, 55), "visc_matvec": (36, 1)}
 # what a variant adds on each pair of a dynamic rigid row with a fluid
 # neighbour (density_alpha_divergence: its same-object sum, on every pair)
 RIGID_EXTRA_OPS = {"nonpressure": 12, "nonpressure_warm": 27,
@@ -211,7 +261,7 @@ RIGID_VARIANTS = (("nonpressure+rigid", "nonpressure", True),
 TEST_INSTR = 12
 SCHEDULERS_PER_SM = 4
 PILE_UP_BODIES = ("density_alpha_divergence", "nonpressure_warm", "pressure",
-                  "iisph_sum_i")
+                  "iisph_sum_i", "visc_prep", "visc_matvec")
 ENGINES = {
     "pair_pass": ("sph_project_tpu_torch/csrc/pair_pass.cu",
                   "sph_project_tpu/ops/pair_dma.py:574"),
@@ -291,6 +341,32 @@ def small_box_config() -> dict:
                          "entryTime": -1.0}]}
 
 
+def implicit_box_config() -> dict:
+    """The small domain-box scene with implicit viscosity 2000 (the CPU
+    tests' tests/test_torch_viscosity.py implicit_config(2000.0))."""
+    cfg = small_box_config()
+    cfg["Configuration"].update(viscosityMethod="implicit", viscosity=2000.0,
+                                viscosity_b=2000.0)
+    return cfg
+
+
+def emitter_column_config() -> dict:
+    """A fluid column falling at 2 m/s through the emitter height 0.2 in a
+    0.4^3 domain box, implicit viscosity 50 (the CPU tests'
+    tests/test_torch_emitter.py column_config("implicit"))."""
+    return {"Configuration": {
+        "domainStart": [0, 0, 0], "domainEnd": [0.4, 0.4, 0.4],
+        "addDomainBox": True, "particleRadius": 0.01, "density0": 1000,
+        "gravitation": [0.0, -9.81, 0.0], "simulationMethod": "dfsph",
+        "viscosityMethod": "implicit", "timeStepSize": 1e-3,
+        "viscosity": 50.0, "gravitationUpper": 0.2},
+        "FluidBlocks": [{"objectId": 0, "start": [0.14, 0.08, 0.14],
+                         "end": [0.26, 0.34, 0.26], "translation": [0, 0, 0],
+                         "scale": [1, 1, 1], "velocity": [0, -2.0, 0],
+                         "density": 1000.0, "color": [0, 0, 0],
+                         "entryTime": -1.0}]}
+
+
 def cube_obj(size: float) -> str:
     """An axis-aligned cube mesh centred at the origin, written under
     ``build/`` of the checkout (the layout of tests/test_rigid.py)."""
@@ -353,8 +429,12 @@ def expected_bodies(params) -> set:
     def v(body):
         return f"{body}+rigid" if rigid else body
 
+    implicit = params.viscosity_method == "implicit"
     if method == "dfsph":
-        np_body = "nonpressure_warm" if params.dfsph_warm_start else "nonpressure"
+        # the warm correction rides the non-pressure pass only with standard
+        # viscosity
+        np_body = "nonpressure_warm" if params.dfsph_warm_start and \
+            not implicit else "nonpressure"
         out = {"density", "alpha", "rigid_volume", "divergence", v(np_body),
                v("correction"), v("density_alpha_divergence")}
     else:
@@ -364,6 +444,8 @@ def expected_bodies(params) -> set:
             out.add("pressure")      # the prediction loop's, without wrench
     if rigid and params.contact_channels:
         out.add("rigid_contact")
+    if implicit:
+        out.update(VISCOUS_BODIES)
     return out
 
 
@@ -392,6 +474,7 @@ def main() -> int:
     from sph_project_tpu_torch.rigid import integrator
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.solvers import common
+    from sph_project_tpu_torch.solvers import viscosity_cg
     from sph_project_tpu_torch.utils.config import SimConfig
 
     # ---- 1. the card ------------------------------------------------------
@@ -452,7 +535,9 @@ def main() -> int:
         say(f"[3] {label}: prepare (sort, rigid volumes"
             f"{', density, alpha' if params.simulation_method == 'dfsph' else ''}"
             f") on {sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        implicit = params.viscosity_method == "implicit"
         step_ms = []
+        fluid_num = 0
         for s in range(steps):
             before = dict(pk.launches)
             t0 = time.perf_counter()
@@ -468,18 +553,47 @@ def main() -> int:
             iters = "".join(f"{k} {row[k]} " for k in ("solver_iters",
                                                          "div_iters")
                             if k in row)
+            if implicit:
+                # one matvec for the initial residual and one per iteration
+                cg = viscosity_cg.last_solve["cg_iters"]
+                n_mv = pk.launches[f"{engine}/visc_matvec"] - \
+                    before[f"{engine}/visc_matvec"]
+                n_prep = pk.launches[f"{engine}/visc_prep"] - \
+                    before[f"{engine}/visc_prep"]
+                check(n_mv == cg + 1 and n_prep == 1,
+                      f"{label}, step {s}: {n_prep} prep and {n_mv} matvec "
+                      f"launches for {cg} CG iterations")
+                iters += (f"cg_iters {cg} cg_err "
+                          f"{viscosity_cg.last_solve['cg_err']:.3e} max|visc_x| "
+                          f"{float(viscosity_cg.last_solve['visc_x_max']):.4e} ")
             say(f"[3] step {s}: {step_ms[-1]:.2f} ms {iters}"
+                f"fluid_num {row['fluid_num']} "
                 f"density_avg {row['density_avg']:.3f} "
                 f"density_max {row['density_max']:.3f} "
                 f"vel_max {row['vel_max']:.4f} "
                 f"neighbor_overflow {row['neighbor_overflow']} "
                 f"sort_overflow {row['sort_overflow']}")
-            for k in ("density_avg", "density_max"):
-                check(0.72 * rho0 <= row[k] <= 1.01 * rho0,
-                      f"step {s}: {k} {row[k]} outside [0.72, 1.01] rho0")
+            if params.has_entries:
+                # emitter placeholders turn fluid: the count never falls.
+                # The density band's floor holds for the densest particle
+                # only, and lower (EMITTER_DENSITY_LOW); no fluid, no density
+                check(fluid_num <= row["fluid_num"] <= n_fluid,
+                      f"step {s}: fluid count {row['fluid_num']} after "
+                      f"{fluid_num}, of {n_fluid}")
+                check(row["density_avg"] <= 1.01 * rho0,
+                      f"step {s}: density_avg {row['density_avg']}")
+                check(row["fluid_num"] == 0 or EMITTER_DENSITY_LOW * rho0
+                      <= row["density_max"] <= 1.01 * rho0,
+                      f"step {s}: density_max {row['density_max']} outside "
+                      f"[{EMITTER_DENSITY_LOW}, 1.01] rho0")
+            else:
+                check(row["fluid_num"] == n_fluid, f"step {s}: fluid count")
+                for k in ("density_avg", "density_max"):
+                    check(0.72 * rho0 <= row[k] <= 1.01 * rho0,
+                          f"step {s}: {k} {row[k]} outside [0.72, 1.01] rho0")
+            fluid_num = row["fluid_num"]
             check(row["neighbor_overflow"] == 0 and row["sort_overflow"] == 0,
                   f"step {s}: overflow")
-            check(row["fluid_num"] == n_fluid, f"step {s}: fluid count")
             rigid = sim.state.rigid
             for oid in params.contact_channels:
                 body = {k: getattr(rigid, k)[oid].tolist()
@@ -504,6 +618,8 @@ def main() -> int:
                   f"{label}: kernel {k} launched {v} times")
         check(bool(torch.isfinite(sim.state.particles.pos).all()),
               "non-finite positions")
+        if params.has_entries:
+            check(fluid_num > 0, f"{label}: the emitter delivered no fluid")
         say(f"[3] {label}: steps mean {np.mean(step_ms):.2f} ms, after the "
             f"first {np.mean(step_ms[1:]):.2f} ms")
         if params.dfsph_warm_start:
@@ -533,7 +649,7 @@ def main() -> int:
         if moved:
             moved_per_step[(engine, kind)] = moved // steps
         # the other runs only count launches
-        if label in MEASURED + COUPLED_MEASURED:
+        if label in MEASURED + COUPLED_MEASURED + VISCOUS_MEASURED:
             sims[label] = sim
         del sim
         torch.cuda.empty_cache()
@@ -573,7 +689,9 @@ def main() -> int:
                     torch.square(st.iisph_density_star), 1e-12),
                 "pred": torch.where(fluid, p.pos + shift, p.pos),
                 "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
-                "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3)))}
+                "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3))),
+                "x": torch.where(fluid, p.vel + seeded(
+                    rng.normal(0.0, 0.1, (n, 3))), torch.zeros_like(p.vel))}
 
     def work_of_rows(env, params, fields, produce):
         """(candidates tested, pairs inside the radius) over these rows, the
@@ -586,6 +704,20 @@ def main() -> int:
         cnt = pk.run_cuda("divergence", env, fields, params, produce,
                           flags=1)["cnt"]
         return cand, int(cnt.sum().item())
+
+    def rigid_j_pairs(env, params, fields, produce) -> int:
+        """Pairs inside the radius of these rows whose neighbour is rigid,
+        through the plain cell-list executor."""
+        cell_env = pairs.make_pair_env(env.cells, env.produce, params)
+        comps = {k: fields[k] for k in ("pos", "material")}
+
+        def body(cx):
+            _, d2, mask = cx.geometry()
+            return {"n": cx.sum(torch.ones_like(d2), mask & (
+                cx.slab("material") == MATERIAL_RIGID))}
+
+        out = pairs.run_plain(body, cell_env, comps, ("n",), produce=produce)
+        return int(out["n"].sum().item())
 
     def rows_read(env, params, fields, produce) -> int:
         """The rows whose fields a pass over these producing rows needs: the
@@ -675,7 +807,15 @@ def main() -> int:
             rows = "rigid" if produce is not None else "fluid"
             tests, npairs = work_of[rows]
             n_bytes = pass_bytes(fk, read_of[rows], table, len(out_k), n)
-            n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
+            if name in VISC_OPS:
+                n_rj = rigid_j_pairs(env, params, fields, env.produce)
+                f_ops, r_ops = VISC_OPS[name]
+                n_ops = (npairs * GEOMETRY_OPS + (npairs - n_rj) * f_ops
+                         + n_rj * r_ops)
+                say(f"[4] {engine}/{name}: {n_rj} of the {npairs} pairs have "
+                    f"a rigid neighbour")
+            else:
+                n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
             say(f"[4] {engine}/{name}: max_abs_err {err:.3e}, kernel "
@@ -754,7 +894,7 @@ def main() -> int:
         advance positions as the step does, then bin. Returns its numbers."""
         params, st = sim.params, sim.state
         n = params.n_pad
-        p2 = common.update_fluid_position(st.particles, params)
+        p2 = common.update_fluid_position(st.particles, st.rigid, params)
         p2 = common.enforce_domain_boundary(p2, params)
         cells = nblib.flat_cell_ids(p2.pos, p2.material != MATERIAL_NONE,
                                     params)
@@ -995,6 +1135,9 @@ def main() -> int:
         sim.state = state.replace(cached_neighbors=env)
         check_engine(sim, NEW_BODIES)
     del sim
+    for label in VISCOUS_MEASURED:
+        check_engine(sims.pop(label), VISCOUS_BODIES)
+        torch.cuda.empty_cache()
     records.append(dict(
         name="permute", route="cuda",
         source="sph_project_tpu_torch/csrc/permute.cu",
@@ -1004,28 +1147,39 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. small scenes: CPU plain versions vs card kernels ---------------
-    for label, overrides in SMALL_RUNS:
+    small_runs = [(f"small domain-box scene, {label}", small_box_config(),
+                   overrides) for label, overrides in SMALL_RUNS]
+    # implicit viscosity against the walls, and an implicit emitter whose
+    # placeholders turn fluid: the CG's iterations and the fluid count too
+    small_runs += [("implicit domain box", implicit_box_config(), {}),
+                   ("implicit emitter column", emitter_column_config(), {})]
+    for label, cfg, overrides in small_runs:
         runs = {}
         for dev in ("cpu", "cuda"):
-            sc, st = load_scene(config=SimConfig(config=small_box_config()),
-                                **overrides)
+            sc, st = load_scene(config=SimConfig(config=cfg), **overrides)
             small = simlib.Simulation(sc, st, device=dev)
-            iters = [tuple(int(d[k]) for k in ("solver_iters", "div_iters")
-                           if k in d)
-                     for d in (small.step() for _ in range(SMALL_STEPS))]
+            implicit = sc.params.viscosity_method == "implicit"
+            counts = []
+            for _ in range(SMALL_STEPS):
+                d = small.step()
+                counts.append(
+                    tuple(int(d[k]) for k in ("solver_iters", "div_iters")
+                          if k in d)
+                    + ((viscosity_cg.last_solve["cg_iters"],
+                        int(d["fluid_num"])) if implicit else ()))
             sp = small.state.particles
-            runs[dev] = (iters, sp.pos[sp.material == MATERIAL_FLUID].cpu())
+            runs[dev] = (counts, sp.pos[sp.material == MATERIAL_FLUID].cpu())
         check(runs["cpu"][0] == runs["cuda"][0],
-              f"small scene ({label}) iteration counts differ: "
-              f"{runs['cpu'][0]} vs {runs['cuda'][0]}")
+              f"{label}: counts differ: {runs['cpu'][0]} vs "
+              f"{runs['cuda'][0]}")
         a, b = runs["cuda"][1].double(), runs["cpu"][1].double()
-        check(a.shape == b.shape, "small scene fluid counts differ")
+        check(a.shape == b.shape, f"{label}: fluid counts differ")
         nn = float(torch.cdist(a, b).min(dim=1).values.max())
-        say(f"[5] small domain-box scene, {label}, {SMALL_STEPS} steps: "
-            f"iterations (pressure solver, divergence solver) "
+        say(f"[5] {label}, {SMALL_STEPS} steps: (pressure solver, divergence "
+            f"solver{', CG, fluid count' if implicit else ''}) iterations "
             f"{runs['cuda'][0]} equal on CPU and card; max nearest-neighbour "
             f"distance {nn:.3e}")
-        check(nn < NN_TOL, f"small scene ({label}) trajectories differ by {nn}")
+        check(nn < NN_TOL, f"{label}: trajectories differ by {nn}")
 
     coupled_runs = [(f"cube pool, {m.upper()}", cube_pool_config(m),
                      SMALL_STEPS if m == "dfsph" else COUPLED_STEPS)

@@ -1,6 +1,7 @@
 // The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH, over
-// fluid, static walls and dynamic rigid bodies) as device functors, the
-// arguments they read and the cubic spline. Both pair kernels include this header
+// fluid, static walls and dynamic rigid bodies, with standard or implicit
+// viscosity) as device functors, the arguments they read and the cubic
+// spline. Both pair kernels include this header
 // (pair_pass.cu: the cell-list engine; pair_slab.cu: the slab-window
 // engine), so a body is written once and runs under either engine, as a body
 // of the JAX package written against ops/pair_exec.Cx runs under either of
@@ -47,6 +48,8 @@ enum Body {
   BODY_IISPH_DIJ_PJ = 13,
   BODY_IISPH_SUM_I = 14,
   BODY_RIGID_CONTACT = 15,
+  BODY_VISC_PREP = 16,
+  BODY_VISC_MATVEC = 17,
 };
 
 // Mirrors ops/pair_kernels.py PairArgs (ctypes), field for field.
@@ -72,6 +75,7 @@ struct PairArgs {
   const float* pred;         // (n, 3) predicted positions
   const float* dii;          // (n, 3)
   const float* dij_pj;       // (n, 3)
+  const float* x;            // (n, 3) the CG's vector            [visc_matvec]
   const float* com;          // (objects, 3) body com table     [pressure]
   const int* chan;           // (objects,) contact channel      [contact]
   const int* starts;         // (n / block, 9) window starts    [slab]
@@ -522,6 +526,70 @@ struct RigidContact {
   }
 };
 
+// The two passes of the implicit viscosity solve (viscosity_cg.py). Both
+// produce on fluid rows and skip a neighbour that is neither fluid nor rigid
+// (the plain versions add a signed zero for it). c_ij is the coefficient of
+// A_ij = c_ij gradW (x) R (cij): for fluid j c[5] m_ij / rho_j / (d2 + c[4]),
+// for rigid j c[6] (c[7] V_j) / rho_i / (d2 + c[4]). c[4] 0.01 h^2, c[5]
+// -d2c*viscosity, c[6] -d2c*viscosity_b, c[7] density0, c[8]
+// d2c*viscosity_b*density0.
+__device__ __forceinline__ float visc_c_fluid(const PairArgs& a, int j, float m_i,
+                                              float inv_denom) {
+  float rho_j = a.density[j];
+  rho_j = rho_j > 0.0f ? rho_j : 1.0f;
+  const float m_ij = 0.5f * (m_i + a.mass[j]);
+  return a.c[5] * m_ij / rho_j * inv_denom;
+}
+
+// prep_kern: Axx, Axy, Axz, Ayy, Ayz, Azz (sums of c_ij gw R_a R_b over fluid
+// and rigid j), then br0..2 (the rigid neighbours' velocity term of b)
+struct ViscPrep {
+  static constexpr int NOUT = 9;
+  float m_i, inv_rho_i;
+  __device__ void load(const PairArgs& a, int i) {
+    m_i = a.mass[i];
+    inv_rho_i = a.inv_rho[i];
+  }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const float* c = a.c;
+    const int mat_j = a.material[j];
+    const bool rigid_j = mat_j == MATERIAL_RIGID;
+    if (mat_j != MATERIAL_FLUID && !rigid_j) return;
+    const float gw = cubic_gw(d2, c);
+    const float inv_denom = 1.0f / (d2 + c[4]);
+    const float cc = rigid_j ? c[6] * (c[7] * a.rest_volume[j]) * inv_rho_i * inv_denom
+                             : visc_c_fluid(a, j, m_i, inv_denom);
+    const float cg = cc * gw;
+    acc[0] += cg * R[0] * R[0];
+    acc[1] += cg * R[0] * R[1];
+    acc[2] += cg * R[0] * R[2];
+    acc[3] += cg * R[1] * R[1];
+    acc[4] += cg * R[1] * R[2];
+    acc[5] += cg * R[2] * R[2];
+    if (rigid_j) {
+      const float v_dot_r = a.vel[3 * j] * R[0] + a.vel[3 * j + 1] * R[1] + a.vel[3 * j + 2] * R[2];
+      const float cb = c[8] * a.rest_volume[j] * inv_rho_i * v_dot_r * inv_denom * gw;
+      for (int d = 0; d < 3; ++d) acc[6 + d] += cb * R[d];
+    }
+  }
+};
+
+// the CG matvec kern: acc0..2, sums over fluid j of -c_ij gw (R . x_j) R
+struct ViscMatvec {
+  static constexpr int NOUT = 3;
+  float m_i;
+  __device__ void load(const PairArgs& a, int i) { m_i = a.mass[i]; }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    if (a.material[j] != MATERIAL_FLUID) return;
+    const float gw = cubic_gw(d2, a.c);
+    const float inv_denom = 1.0f / (d2 + a.c[4]);
+    const float cc = visc_c_fluid(a, j, m_i, inv_denom);
+    const float s = R[0] * a.x[3 * j] + R[1] * a.x[3 * j + 1] + R[2] * a.x[3 * j + 2];
+    const float contrib = -cc * gw * s;
+    for (int d = 0; d < 3; ++d) acc[d] += contrib * R[d];
+  }
+};
+
 // channel counts the contact body is built for: the count of a launch picks
 // the least that holds it
 #define CONTACT_CHANNELS_SMALL 4
@@ -566,6 +634,8 @@ static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
       if (a.n_chan <= CONTACT_CHANNELS_MEDIUM)
         return Launch<RigidContact<CONTACT_CHANNELS_MEDIUM>>::run(a, 4 * a.n_chan, s);
       return Launch<RigidContact<CONTACT_CHANNELS_MAX>>::run(a, 4 * a.n_chan, s);
+    case BODY_VISC_PREP: return Launch<ViscPrep>::run(a, 9, s);
+    case BODY_VISC_MATVEC: return Launch<ViscMatvec>::run(a, 3, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@ def _cubic_norm(h: float, dim: int) -> float:
 def _require_cubic(kind: str) -> None:
     if kind != "cubic":
         raise NotImplementedError(
-            f"{kind} kernel is not ported yet (ROADMAP Queue A.9, PBF)")
+            f"{kind} kernel is not ported yet (ROADMAP Queue A.9b, PBF)")
 
 
 def cubic_W(r: torch.Tensor, h: float, dim: int) -> torch.Tensor:

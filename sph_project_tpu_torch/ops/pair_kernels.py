@@ -14,11 +14,12 @@ a plain version. Outputs are per row, zero on rows that do not produce; vector
 outputs come back as (N, 3).
 
 Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH):
-standard viscosity, cubic kernel, fluid, static walls and dynamic rigid
-bodies. A body that has outputs for dynamic rigid bodies (the wrenches, the
-same-object kernel sum) adds them under the flag :data:`RIGID`, after its
-other outputs; ``rigid_contact`` has one group of outputs per contact
-channel, so its outputs depend on ``params.contact_channels``.
+standard and implicit viscosity, cubic kernel, fluid, static walls and
+dynamic rigid bodies. A body that has outputs for dynamic rigid bodies (the
+wrenches, the same-object kernel sum) adds them under the flag
+:data:`RIGID`, after its other outputs; ``rigid_contact`` has one group of
+outputs per contact channel, so its outputs depend on
+``params.contact_channels``.
 """
 from __future__ import annotations
 
@@ -324,6 +325,61 @@ def iisph_sum_i_body(cx, params, flags=0):
     return {"s": cx.sum(contrib, mask)}
 
 
+def _visc_c_fluid(cx, d2, params):
+    """The fluid-neighbour half of viscosity_cg ``cij`` :48, the coefficient
+    of A_ij = c_ij gradW (x) R for fluid j; with 1 / (d2 + 0.01 h^2)."""
+    d2c = 2.0 * (params.dim + 2)
+    inv_denom = 1.0 / (d2 + 0.01 * params.support_radius ** 2)
+    rho_j = cx.slab("density")
+    rho_j = cx.where(rho_j > 0, rho_j, 1.0)
+    m_ij = 0.5 * (cx.blk("mass") + cx.slab("mass"))
+    return -d2c * params.viscosity * m_ij / rho_j * inv_denom, inv_denom
+
+
+def visc_prep_body(cx, params, flags=0):
+    """viscosity_cg ``prep_kern`` :71: the six sums of A_sum over fluid and
+    rigid j (``Axx`` ... ``Azz``), then the rigid neighbours' velocity term
+    of b over rigid j (``br``)."""
+    d2c = 2.0 * (params.dim + 2)
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    c_f, inv_denom = _visc_c_fluid(cx, d2, params)
+    m_b = params.density0 * cx.slab("rest_volume")
+    c_b = -d2c * params.viscosity_b * m_b * cx.blk("inv_rho") * inv_denom
+    c = cx.where(fluid_j, c_f, 0.0) + cx.where(rigid_j, c_b, 0.0)
+    cg = c * gw
+    out = {}
+    ax = "xyz"
+    for a in range(cx.dim):
+        for b in range(a, cx.dim):
+            out[f"A{ax[a]}{ax[b]}"] = cx.sum(cg * R[a] * R[b], mask)
+    vs = cx.vec_slab("vel")
+    v_dot_R = sum(vs[d] * R[d] for d in range(cx.dim))
+    cb = d2c * params.viscosity_b * params.density0 * \
+        cx.slab("rest_volume") * cx.blk("inv_rho") * v_dot_R * inv_denom * gw
+    cb = cx.where(rigid_j, cb, 0.0)
+    for d in range(cx.dim):
+        out[f"br{d}"] = cx.sum(cb * R[d], rigid_j)
+    return out
+
+
+def visc_matvec_body(cx, params, flags=0):
+    """The CG matvec ``kern`` of viscosity_cg :110: sum over fluid j of
+    -c_ij gw (R . x_j) R (``acc``); c_ij of a rigid j, which the sum leaves
+    out, is not formed."""
+    R, d2, mask = cx.geometry()
+    gw = _gw(d2, params)
+    fluid_j = mask & (cx.slab("material") == MATERIAL_FLUID)
+    c, _ = _visc_c_fluid(cx, d2, params)
+    xs = cx.vec_slab("x")
+    s = sum(R[d] * xs[d] for d in range(cx.dim))
+    contrib = cx.where(fluid_j, -c * gw * s, 0.0)
+    return {f"acc{d}": cx.sum(contrib * R[d], fluid_j) for d in range(cx.dim)}
+
+
 def rigid_contact_body(cx, params, flags=0):
     """integrator.rigid_contact_data :129: on a rigid row, per contact
     channel, the penetration-weighted sums over rigid neighbours of another
@@ -409,6 +465,12 @@ BODIES = {
     # outputs per channel (contact_outputs); ``chan`` is a table per object
     "rigid_contact": (15, rigid_contact_body, (),
                       ("pos", "material", "object_id", "chan")),
+    "visc_prep": (16, visc_prep_body,
+                  ("Axx", "Axy", "Axz", "Ayy", "Ayz", "Azz") + _vec("br"),
+                  ("pos", "vel", "material", "mass", "density", "rest_volume",
+                   "inv_rho")),
+    "visc_matvec": (17, visc_matvec_body, _vec("acc"),
+                    ("pos", "x", "material", "mass", "density")),
 }
 # name -> (outputs a body adds under flags & RIGID, after its others; the
 #          fields they read besides the body's)
@@ -482,6 +544,11 @@ def body_constants(name: str, params: SimParams) -> list:
         c += [params.density0]
     if name == "rigid_contact":
         c += [params.particle_diameter]
+    if name in ("visc_prep", "visc_matvec"):
+        d2c = 2.0 * (params.dim + 2)
+        c += [0.01 * params.support_radius ** 2, -d2c * params.viscosity,
+              -d2c * params.viscosity_b, params.density0,
+              d2c * params.viscosity_b * params.density0]
     return c
 
 
@@ -490,12 +557,12 @@ def body_constants(name: str, params: SimParams) -> list:
 _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "object_id", "is_dynamic", "rest_volume", "mass", "inv_rho",
                "kappa", "k_rho", "pressure", "density", "p_rho2", "dpi",
-               "inv_star2", "pred", "dii", "dij_pj", "com", "chan", "starts",
-               "lens", "out")
+               "inv_star2", "pred", "dii", "dij_pj", "x", "com", "chan",
+               "starts", "lens", "out")
 # fields a body reads: (N, 3) vectors, i32 ids and flags, tables per object
 # (read through a row's object id; name -> trailing shape); every other one
 # (N,) f32
-_VECTORS = ("pos", "vel", "pred", "dii", "dij_pj")
+_VECTORS = ("pos", "vel", "pred", "dii", "dij_pj", "x")
 _INTS = ("material", "object_id", "is_dynamic", "chan")
 _TABLES = {"chan": (), "com": (3,)}
 N_CONST = 16
@@ -670,7 +737,8 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
         dpi=params.density0 * fields["rest_volume"] / (density * density),
         inv_star2=1.0 / (density * density),
         pred=pos + (rand(n, 3) - 0.5) * (0.2 * h),
-        dii=(rand(n, 3) - 0.5) * 0.02, dij_pj=(rand(n, 3) - 0.5) * 20.0)
+        dii=(rand(n, 3) - 0.5) * 0.02, dij_pj=(rand(n, 3) - 0.5) * 20.0,
+        x=rand(n, 3) - 0.5)
     cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
     perm = neighbors.sort_permutation(cells)
     fields = {k: v[perm].contiguous() for k, v in fields.items()}

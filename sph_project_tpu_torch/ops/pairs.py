@@ -80,7 +80,7 @@ def make_pair_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
     from .neighbors import cell_table
     if params.dim != 3:
         raise NotImplementedError("2D scenes are not ported yet "
-                                  "(ROADMAP Queue A.9, PBF 2D)")
+                                  "(ROADMAP Queue A.9b, PBF 2D)")
     return PairEnv(cells=cells_sorted.contiguous(),
                    cell_start=cell_table(cells_sorted, params.num_cells),
                    produce=produce.contiguous(), grid=tuple(params.grid_num),

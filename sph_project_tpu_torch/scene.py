@@ -5,10 +5,16 @@ the particle arrays come out bit for bit the same. Left out:
 
 - the TPU pair engines' window-cap estimators (``estimate_slab_sizes``,
   ``estimate_su``): the port's cell-list engine has no caps;
-- deferred entries and emitters, and the shape-matching rigid solver
-  (``rigid_solver="shape_matching"`` with dynamic bodies): the port does not
-  run them yet. A scene that has them raises ``NotImplementedError`` naming
-  the ROADMAP item that ports them.
+- the switch that turns the TPU sort kernel off for a large deferred entry
+  (JAX ``scene.py`` :289-296): the port's gather permutes every row;
+- the shape-matching rigid solver (``rigid_solver="shape_matching"`` with
+  dynamic bodies): the port does not run it yet, and a scene that selects it
+  raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Objects with an ``entryTime`` above 0 are packed as ``MATERIAL_NONE`` rows
+with their entry time and material beside them (the step activates them,
+``sim.Plumbing.activate_entries``); ``gravitationUpper`` sets the emitter
+height ``g_upper``.
 
 Dynamic rigid bodies are sampled in their own frame and placed by their
 (com, rot), as the JAX package places them (its ``scene.py`` :221-255); the
@@ -26,7 +32,8 @@ from typing import List
 import numpy as np
 import torch
 
-from .core.params import MATERIAL_FLUID, MATERIAL_RIGID, SimParams, make_params
+from .core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
+                          SimParams, make_params)
 from .core.state import RigidState, zeros_state
 from .geometry import mesh as meshlib
 from .geometry import shapes
@@ -40,8 +47,6 @@ BUILTIN_MODELS = os.path.join(os.path.dirname(os.path.dirname(
 
 _SHAPE_MATCHING = ("the shape-matching rigid solver is not ported yet "
                    "(ROADMAP Queue A.11b, shape matching)")
-_ENTRIES = ("deferred entries and emitters are not ported yet "
-            "(ROADMAP Queue A.12, deferred entries and emitters)")
 
 
 def _resolve_path(path: str) -> str:
@@ -81,12 +86,6 @@ class Scene:
 
 
 def _check_supported(cfg: SimConfig, rigid_solver: str) -> None:
-    if cfg.get_cfg("gravitationUpper") is not None:
-        raise NotImplementedError(_ENTRIES)
-    for obj in (cfg.get_fluid_blocks() + cfg.get_fluid_bodies()
-                + cfg.get_rigid_bodies()):
-        if float(obj.get("entryTime", -1.0)) > 0.0:
-            raise NotImplementedError(_ENTRIES)
     if rigid_solver == "shape_matching" and any(
             bool(b.get("isDynamic", False)) for b in cfg.get_rigid_bodies()):
         raise NotImplementedError(_SHAPE_MATCHING)
@@ -274,10 +273,13 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
                   (127, 127, 127), False)
 
     n_particles = sum(c["pos"].shape[0] for c in chunks)
-    kw["has_rigid"] = any(c["material"] == MATERIAL_RIGID for c in chunks)
+    # emitters turn fluid rows into rigid placeholders
+    kw["has_rigid"] = any(c["material"] == MATERIAL_RIGID for c in chunks) \
+        or any(c["entry"] > 0 for c in chunks) or g_upper is not None
     kw["has_dynamic_rigid"] = any(
         c["material"] == MATERIAL_RIGID and c["dynamic"] for c in chunks)
-    kw["has_entries"] = False
+    kw["has_entries"] = any(c["entry"] > 0 for c in chunks) or \
+        g_upper is not None
     # one exact contact channel per dynamic rigid body; static geometry shares
     # one merged channel (rigid/integrator.py rigid_contact_data)
     if "contact_channels" not in param_overrides:
@@ -305,6 +307,8 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
     obj = np.full(n_pad, -1, np.int32)
     dyn = np.zeros(n_pad, np.int32)
     rest_pos = np.zeros((n_pad, dim), np.float32)
+    entry_t = np.full(n_pad, -1.0, np.float32)
+    entry_m = np.zeros(n_pad, np.int32)
 
     cursor = 0
     for c in chunks:
@@ -316,7 +320,12 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
         obj[sl] = c["obj_id"]
         dyn[sl] = c["dynamic"]
         rest_pos[sl] = c["rest_pos"]
-        mat[sl] = c["material"]
+        if c["entry"] > 0.0:
+            entry_t[sl] = c["entry"]
+            entry_m[sl] = c["material"]
+            mat[sl] = MATERIAL_NONE
+        else:
+            mat[sl] = c["material"]
         cursor += n
 
     mass = (0.8 * params.particle_diameter ** dim) * dens  # V0 * density
@@ -326,7 +335,8 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
     p = state.particles.replace(
         pos=t(pos), vel=t(vel), density=t(dens), mass=t(mass.astype(np.float32)),
         material=t(mat), object_id=t(obj), is_dynamic=t(dyn),
-        rigid_rest_pos=t(rest_pos),
+        rigid_rest_pos=t(rest_pos), entry_time=t(entry_t),
+        entry_material=t(entry_m),
     )
 
     # ---- rigid body table ---------------------------------------------------

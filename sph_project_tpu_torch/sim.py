@@ -1,8 +1,9 @@
 """Simulation orchestration: the per-step sort, prepare, the step, the driver.
 
 The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH
-and IISPH, over fluid, static walls and dynamic rigid bodies with the
-integrator backend (line numbers name its functions). PyTorch runs eagerly,
+and IISPH, with standard or implicit viscosity, over fluid, static walls,
+dynamic rigid bodies with the integrator backend, deferred entries and
+emitters (line numbers name its functions). PyTorch runs eagerly,
 so there is no jit and no scan: ``step`` runs one step and ``run`` loops over
 it. Every tensor of the state lives on the simulation's device, and the
 device defaults to ``"cuda"``; on a host without CUDA, ask for
@@ -33,12 +34,8 @@ def _check_ported(params: SimParams) -> None:
         raise NotImplementedError(
             f"simulation method {params.simulation_method} is not ported yet "
             "(ROADMAP Queue A.9b)")
-    if params.viscosity_method != "standard":
-        raise NotImplementedError("implicit viscosity is not ported yet "
-                                  "(ROADMAP Queue A.10)")
-    if params.has_entries:
-        raise NotImplementedError("deferred entries and emitters are not "
-                                  "ported yet (ROADMAP Queue A.12)")
+    if params.viscosity_method not in ("standard", "implicit"):
+        raise NotImplementedError(params.viscosity_method)
     if params.has_dynamic_rigid and params.rigid_solver != "integrator":
         raise NotImplementedError(
             f"rigid_solver={params.rigid_solver!r} is not ported yet "
@@ -47,13 +44,17 @@ def _check_ported(params: SimParams) -> None:
 
 def permuted_keys(params: SimParams) -> tuple:
     """Per-particle arrays that carry across the sort (:25): (fields of the
-    particles, fields of the state itself: IISPH's advected density and the
-    DFSPH warm-start carries)."""
+    particles, fields of the state itself: the implicit viscosity's warm
+    start, IISPH's advected density and the DFSPH warm-start carries)."""
     keys = ("pos", "vel", "mass", "rest_volume", "density", "material",
             "object_id", "is_dynamic")
     if params.has_rigid:
         keys += ("rigid_rest_pos",)
+    if params.has_entries:
+        keys += ("entry_time", "entry_material")
     extras = ()
+    if params.viscosity_method == "implicit":
+        extras += ("visc_x",)
     if params.simulation_method == "iisph":
         extras += ("iisph_density_star",)
     if params.dfsph_warm_start:
@@ -66,7 +67,10 @@ def permuted_keys(params: SimParams) -> tuple:
 def sort_state(state: SimState, params: SimParams):
     """Sort the carried per-particle arrays by grid cell (:56). The cell ids
     ride through the same fused gather, so the sorted ids are the ones the
-    sort used. Returns (sorted state, sorted cell ids, permutation)."""
+    sort used. The gather is a full permutation of every row, so a burst of
+    deferred entries needs no other path (the JAX package turns its sort
+    kernel off for one, ``scene.py`` :289-296). Returns (sorted state,
+    sorted cell ids, permutation)."""
     p = state.particles
     active = p.material != MATERIAL_NONE
     cells = nblib.flat_cell_ids(p.pos, active, params)
@@ -84,7 +88,8 @@ def sort_state(state: SimState, params: SimParams):
 def produces_output(p: ParticleState, rigid: RigidState,
                     params: SimParams) -> torch.Tensor:
     """Rows whose pair sums are ever read (:159): the fluid rows and the
-    particles of dynamic rigid bodies."""
+    particles of dynamic rigid bodies, never emitter placeholders (rigid
+    rows of a fluid object)."""
     fluid = p.material == MATERIAL_FLUID
     if not params.has_dynamic_rigid:
         return fluid
@@ -114,12 +119,41 @@ class Plumbing:
 
     @staticmethod
     def non_pressure_acceleration(p: ParticleState, rigid: RigidState,
-                                  env: pairs.PairEnv, params: SimParams):
-        """Gravity (assign) + surface tension + standard viscosity (:256)."""
+                                  env: pairs.PairEnv, state: SimState,
+                                  params: SimParams):
+        """Gravity (assign) + surface tension + viscosity (:256), standard
+        or implicit. The implicit solve's new ``visc_x`` goes no further, as
+        in the JAX package (:269-275, which returns only the particles and
+        bodies): every solve starts from x0 = v."""
         acc = common.gravity_acceleration(p, params)
+        if params.viscosity_method == "implicit":
+            from .solvers import viscosity_cg
+            p, rigid, _ = viscosity_cg.implicit_viscosity_solve(
+                p.replace(acc=acc), rigid, state, env, params)
+            return p, rigid
         a_v, rf, rt = common.nonpressure_fused(p, rigid, env, params)
         rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
         return p.replace(acc=acc + a_v), rigid
+
+    @staticmethod
+    def activate_entries(state: SimState, params: SimParams) -> SimState:
+        """Objects whose entry time has come join as mask flips (:280):
+        particles take their entry material, bodies become present. Without
+        deferred entries in the scene there is nothing to flip: the loader
+        made every object present and gave no row an entry material."""
+        if not params.has_entries:
+            return state
+        p, rigid = state.particles, state.rigid
+        t = state.t
+        enter = (p.material == MATERIAL_NONE) & \
+            (p.entry_material != MATERIAL_NONE) & (p.entry_time <= t)
+        p = p.replace(material=torch.where(enter, p.entry_material,
+                                           p.material))
+        r_enter = (rigid.present == 0) & (rigid.entry_time <= t) & \
+            (rigid.obj_material != MATERIAL_NONE)
+        rigid = rigid.replace(present=torch.where(
+            r_enter, torch.ones_like(rigid.present), rigid.present))
+        return state.replace(particles=p, rigid=rigid)
 
     @staticmethod
     def rigid_mid(state: SimState, env: pairs.PairEnv,
@@ -127,16 +161,19 @@ class Plumbing:
         """Rigid dynamics mid-step (:295, integrator backend): the contact
         pass over the dynamic bodies' particles on ``env`` (whose sort their
         positions still match), the body step, which consumes the
-        accumulated wrench, then the particles placed at their bodies' new
-        poses. Nothing to do without dynamic bodies."""
+        accumulated wrench, the entries whose time has come (every step,
+        under every method), then the particles placed at their bodies' new
+        poses."""
         if not params.has_dynamic_rigid:
-            return state
+            return Plumbing.activate_entries(state, params)
         p, rigid = state.particles, state.rigid
         contact = (rigidlib.rigid_contact_data(p, rigid, env, params)
                    if params.contact_channels else None)
         rigid = rigidlib.rigid_body_step(p, rigid, params, contact=contact)
-        p = common.renew_rigid_particle_state(p, rigid, params)
-        return state.replace(particles=p, rigid=rigid)
+        state = Plumbing.activate_entries(state.replace(rigid=rigid), params)
+        p = common.renew_rigid_particle_state(state.particles, state.rigid,
+                                              params)
+        return state.replace(particles=p)
 
     @staticmethod
     def rigid_and_tail(state: SimState, env: pairs.PairEnv,
@@ -213,11 +250,14 @@ def get_step_fn(params: SimParams):
 
 
 def prepare(state: SimState, params: SimParams) -> SimState:
-    """Initial setup (:447): the dynamic rigid particles placed at their
-    bodies' poses, sort, the Akinci volumes of the rigid particles, then, for
-    DFSPH only, density and alpha. Every object of a loadable scene is
-    present from t = 0, so there is nothing to activate."""
+    """Initial setup (:447): the objects present at t = 0 activated, fluid
+    above g_upper made emitter placeholders, the dynamic rigid particles
+    placed at their bodies' poses, sort, the Akinci volumes of the rigid
+    particles, then, for DFSPH only, density and alpha."""
     _check_ported(params)
+    state = Plumbing.activate_entries(state, params)
+    state = state.replace(particles=common.prepare_emitter(state.particles,
+                                                           params))
     if params.has_dynamic_rigid:
         state = state.replace(particles=common.renew_rigid_particle_state(
             state.particles, state.rigid, params))

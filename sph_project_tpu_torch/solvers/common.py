@@ -1,8 +1,9 @@
 """Shared SPH operators of the ported steps, over the pair kernels.
 
 The subset of the JAX package's ``solvers/common.py`` that DFSPH, WCSPH,
-PCISPH and IISPH steps with standard viscosity over fluid, static walls and
-dynamic rigid bodies run (line numbers name the JAX original). Per-particle
+PCISPH and IISPH steps with standard or implicit viscosity over fluid,
+static walls, dynamic rigid bodies and emitters run (line numbers name the
+JAX original). Per-particle
 arithmetic is plain tensor code; every neighbour sum goes through
 ``ops.pair_kernels.run``.
 
@@ -162,11 +163,12 @@ def renew_rigid_particle_state(p: ParticleState, rigid: RigidState,
 
 def compute_rigid_volume_fixedk(p: ParticleState, env: PairEnv,
                                 params: SimParams) -> ParticleState:
-    """Prepare-time Akinci volumes of all rigid particles (:230):
-    V_b = 1 / (W(0) + sum over same-object neighbours of W). The JAX package
-    takes the sum over its fixed-K neighbour list; here it is one pass of the
-    pair engine, over the rigid rows."""
-    sel = p.material == MATERIAL_RIGID
+    """Prepare-time Akinci volumes of the rigid particles at or below g_upper
+    (:230): V_b = 1 / (W(0) + sum over same-object neighbours of W). Emitter
+    placeholders, rigid rows above g_upper, keep their fluid volume and
+    mass. The JAX package takes the sum over its fixed-K neighbour list;
+    here it is one pass of the pair engine, over the selected rows."""
+    sel = (p.material == MATERIAL_RIGID) & (p.pos[:, 1] <= params.g_upper)
     s = pair_kernels.run("rigid_volume", env,
                          {"pos": p.pos, "object_id": p.object_id}, params,
                          produce=sel)["s"]
@@ -267,11 +269,12 @@ def update_fluid_velocity(p: ParticleState, params: SimParams) -> ParticleState:
                                      p.vel + params.dt * p.acc, p.vel))
 
 
-def update_fluid_position(p: ParticleState,
+def update_fluid_position(p: ParticleState, rigid: RigidState,
                           params: SimParams) -> ParticleState:
     """Advance fluid positions (:565), after the CFL speed cap of
-    ``params.vel_cap_cfl`` particle diameters per step. The emitter branch
-    of the JAX original is not ported (ROADMAP Queue A.12)."""
+    ``params.vel_cap_cfl`` particle diameters per step. Emitter placeholders
+    (non-fluid rows of a fluid object above g_upper) advect at their own
+    velocity and turn fluid once they sink to g_upper or below."""
     fluid = _fluid(p)
     vel = p.vel
     if params.vel_cap_cfl > 0:
@@ -282,8 +285,20 @@ def update_fluid_position(p: ParticleState,
                             cap / torch.sqrt(torch.clamp_min(sp2, 1e-30)),
                             torch.ones_like(sp2))
         vel = torch.where(fluid[:, None], vel * scale, vel)
-    new_pos = torch.where(fluid[:, None], p.pos + params.dt * vel, p.pos)
-    return p.replace(pos=new_pos, vel=vel)
+    obj_mat = rigid.obj_material[object_index(p, params)]
+    obj_is_fluid = (obj_mat == MATERIAL_FLUID) & (p.object_id >= 0)
+    emitter = ~fluid & (p.pos[:, 1] > params.g_upper) & obj_is_fluid
+    move = (fluid | emitter)[:, None]
+    new_pos = torch.where(move, p.pos + params.dt * vel, p.pos)
+    became_fluid = emitter & (new_pos[:, 1] <= params.g_upper)
+    material = torch.where(became_fluid, MATERIAL_FLUID, p.material)
+    return p.replace(pos=new_pos, vel=vel, material=material)
+
+
+def prepare_emitter(p: ParticleState, params: SimParams) -> ParticleState:
+    """Fluid particles above g_upper become rigid placeholders (:596)."""
+    flip = _fluid(p) & (p.pos[:, 1] > params.g_upper)
+    return p.replace(material=torch.where(flip, MATERIAL_RIGID, p.material))
 
 
 def enforce_domain_boundary(p: ParticleState, params: SimParams,

@@ -281,7 +281,8 @@ def _nonpressure_and_density_solve(p: ParticleState, rigid: RigidState,
         p = common.update_fluid_velocity(p, params)
         return correct_density_error(p, rigid, alpha, env, params,
                                      warm_pre=(kappa_w, dv, wf, wt))
-    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, params)
+    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, state,
+                                                  params)
     p = common.update_fluid_velocity(p, params)
     return correct_density_error(
         p, rigid, alpha, env, params,
@@ -297,7 +298,7 @@ def step(state: SimState, params: SimParams, plumbing):
 
     p, rigid, itr_d, err_d, kacc = _nonpressure_and_density_solve(
         p, rigid, state, env0, params, plumbing)
-    p = common.update_fluid_position(p, params)
+    p = common.update_fluid_position(p, rigid, params)
     state = state.replace(particles=p, rigid=rigid)
     if params.dfsph_warm_start:
         state = state.replace(dfsph_kappa=kacc)

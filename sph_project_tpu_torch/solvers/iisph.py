@@ -99,7 +99,8 @@ def step(state: SimState, params: SimParams, plumbing):
     p, rigid = state.particles, state.rigid
     p = p.replace(density=common.compute_density(p, env, params),
                   pressure=torch.zeros_like(p.pressure))
-    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, params)
+    p, rigid = plumbing.non_pressure_acceleration(p, rigid, env, state,
+                                                  params)
     p = common.update_fluid_velocity(p, params)
 
     dpi = _dpi(p, params)
@@ -113,7 +114,7 @@ def step(state: SimState, params: SimParams, plumbing):
         p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
-    p = common.update_fluid_position(p, params)
+    p = common.update_fluid_position(p, rigid, params)
 
     state = plumbing.rigid_and_tail(
         state.replace(particles=p, rigid=rigid,

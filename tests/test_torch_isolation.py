@@ -103,9 +103,12 @@ def test_port_imports_no_jax_rigid(tmp_path):
     assert "FOREIGN []" in out.stdout, out.stdout
 
 
+# (the ids name the features the cases probed when they were written:
+# implicit viscosity runs since A.10, and a 2D scene with it still raises)
 @pytest.mark.parametrize("scene,overrides,item", [
     ("smoke_test.json", dict(simulation_method="pbf"), "A.9b"),
-    ("smoke_test.json", dict(viscosity_method="implicit"), "A.10"),
+    ("pbf_2d.json", dict(simulation_method="dfsph",
+                         viscosity_method="implicit"), "A.9b"),
     ("dragon_bath_wcsph.json", dict(rigid_solver="shape_matching"), "A.11b"),
 ], ids=["pbf", "implicit_viscosity", "dynamic_rigid"])
 def test_unported_features_raise(scene, overrides, item):
@@ -117,6 +120,45 @@ def test_unported_features_raise(scene, overrides, item):
         sc, st = load_scene(os.path.join(ROOT, "data", "scenes", scene),
                             **overrides)
         Simulation(sc, st, device="cpu")
+
+
+# an implicit-viscosity emitter: a fluid column falling through the emitter
+# height in the domain box; its placeholders turn fluid within the steps
+_PROBE_EMITTER = """
+import sys
+from sph_project_tpu_torch.scene import load_scene
+from sph_project_tpu_torch.sim import Simulation
+from sph_project_tpu_torch.utils.config import SimConfig
+scene, state = load_scene(config=SimConfig(config=%r))
+assert scene.params.has_entries and scene.params.viscosity_method == "implicit"
+sim = Simulation(scene, state, device="cpu")
+n0 = int(sim.step()["fluid_num"])
+n1 = max(int(sim.step()["fluid_num"]) for _ in range(15))
+assert n1 > n0, (n0, n1)
+assert "sph_project_tpu_torch.solvers.viscosity_cg" in sys.modules
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_port_imports_no_jax_implicit_emitter():
+    config = {
+        "Configuration": {
+            "domainStart": [0, 0, 0], "domainEnd": [0.4, 0.4, 0.4],
+            "addDomainBox": True, "particleRadius": 0.01, "density0": 1000,
+            "gravitation": [0, -9.81, 0], "simulationMethod": "dfsph",
+            "viscosityMethod": "implicit", "timeStepSize": 1e-3,
+            "viscosity": 50.0, "gravitationUpper": 0.2},
+        "FluidBlocks": [{"objectId": 0, "start": [0.14, 0.08, 0.14],
+                         "end": [0.26, 0.34, 0.26], "velocity": [0, -2.0, 0]}]}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE_EMITTER % (config,)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
 
 
 def test_port_sources_name_no_jax():

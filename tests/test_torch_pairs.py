@@ -55,6 +55,7 @@ class Setup:
         self.vel_np, self.kappa_np = vel, kappa
         self.jp = jstate.particles.replace(vel=vel)
         self.jrigid = jstate.rigid
+        self.jstate = jstate
         self.jenv = jstate.cached_neighbors
         self.jsl = jcommon.particle_slabs(self.jenv, self.jp,
                                           jcommon.STATIC_SLAB_KEYS)
@@ -64,6 +65,7 @@ class Setup:
         # the JAX env's produce rows are fluid; carry kappa through the sort
         tstate, self.cells, self.perm = tsim.sort_state(tstate, self.params)
         self.perm = self.perm.numpy()
+        self.tstate = tstate
         self.tp = tstate.particles
         self.trigid = tstate.rigid
         self.kappa = torch.from_numpy(kappa[self.perm])

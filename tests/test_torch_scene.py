@@ -116,9 +116,15 @@ _DYNAMIC_SCENES = ("dragon_bath_dfsph.json", "coupling_dfsph.json",
                    "coupling_nine_rigid.json", "three_cubes")
 
 
+# high_viscosity_implicit: implicit viscosity; the two small emitter scenes:
+# gravitationUpper (the emitter height), a static OBJ body and the walls
+_VISCOUS_SCENES = ("high_viscosity_implicit.json",
+                   "buckling_emitter_small.json", "coiling_emitter_small.json")
+
+
 @pytest.mark.parametrize("name", ["smoke_test.json", "dam_break_demo.json",
                                   "high_viscosity_bunny.json", "box",
-                                  *_DYNAMIC_SCENES])
+                                  *_DYNAMIC_SCENES, *_VISCOUS_SCENES])
 def test_load_scene_bit_equal(name, tmp_path):
     if name == "box":
         config = box_config()
@@ -146,6 +152,10 @@ def test_load_scene_bit_equal(name, tmp_path):
         dyn = (b["particles.is_dynamic"] > 0) & (b["particles.material"] == 2)
         assert dyn.sum() > 0 and (b["rigid.mass"][
             list(ts.params.contact_channels)] > 0).all()
+    if name in _VISCOUS_SCENES:
+        assert ts.params.viscosity_method == "implicit"
+        assert ts.params.has_entries == ("emitter" in name)
+        assert callable(tsim.get_step_fn(ts.params))   # the step is ported
 
 
 def test_box_scene_has_walls():
@@ -189,13 +199,18 @@ def test_bridge_rejects_wrong_size():
         bridge.state_from_numpy(flat, ts.params)
 
 
-# dynamic rigid bodies load; under the shape-matching solver (A.11b) they
-# raise, as deferred entries and emitters do (the ids name the queue items
-# the scenes waited on when these cases were written)
+# dynamic rigid bodies load, and under the shape-matching solver (A.11b) they
+# raise; emitters load and step, and under PBF (A.9b) the scene raises when
+# its step is built (the ids name the queue items the scenes waited on when
+# these cases were written)
 @pytest.mark.parametrize("name,item", [
     pytest.param("coupling_dfsph.json", "A.11b", id="coupling_dfsph.json-A.11"),
-    ("buckling_emitter_small.json", "A.12")])
+    pytest.param("buckling_emitter_small.json", "A.9b",
+                 id="buckling_emitter_small.json-A.12")])
 def test_unported_scenes_raise(name, item):
-    overrides = {"coupling_dfsph.json": dict(rigid_solver="shape_matching")}
+    overrides = {"coupling_dfsph.json": dict(rigid_solver="shape_matching"),
+                 "buckling_emitter_small.json": dict(simulation_method="pbf")}
     with pytest.raises(NotImplementedError, match=item):
-        torch_load_scene(os.path.join(SCENES, name), **overrides.get(name, {}))
+        scene, _ = torch_load_scene(os.path.join(SCENES, name),
+                                    **overrides[name])
+        tsim.get_step_fn(scene.params)

@@ -100,8 +100,8 @@ def test_slab_pass_matches_pallas_kernel(monkeypatch):
 
 
 def _fields(s):
-    """The fields of every body; those of WCSPH, PCISPH and IISPH and the
-    body coms made from a seed with numpy."""
+    """The fields of every body; those of WCSPH, PCISPH and IISPH, the body
+    coms and the CG vector made from a seed with numpy."""
     p = s.tp
     n = s.params.n_pad
     rng = np.random.default_rng(6)
@@ -125,7 +125,8 @@ def _fields(s):
             "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3))),
             "is_dynamic": p.is_dynamic,
             "com": seeded(rng.uniform(0.0, 0.3, (s.params.max_objects, 3))),
-            "chan": channel_table(s.trigid, s.params)}
+            "chan": channel_table(s.trigid, s.params),
+            "x": seeded(rng.normal(0.0, 0.5, (n, 3)))}
 
 
 @pytest.mark.parametrize("name", list(pair_kernels.BODIES))

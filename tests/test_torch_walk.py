@@ -115,7 +115,8 @@ def brute_force(name, params, produce, fields):
 
 @pytest.mark.parametrize("engine", ["pair_pass", "pair_slab"])
 @pytest.mark.parametrize("name", ["density_alpha_divergence",
-                                  "nonpressure_warm"])
+                                  "nonpressure_warm", "visc_prep",
+                                  "visc_matvec"])
 def test_pile_up_plain_matches_brute_force(pile, name, engine):
     params, _, produce, fields, envs = pile
     out = pk.run_plain_body(name, envs[engine], fields, params)

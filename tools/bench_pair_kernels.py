@@ -8,7 +8,8 @@ body of each engine on that state with CUDA events, back to back (the fields
 stay partly in L2, as they do between the passes of a step): every body
 without its dynamic-rigid outputs (the flagship has no dynamic body), but
 the contact pass, which needs one. The stiffness, the pressure, the predicted
-positions, d_ii and sum d_ij p_j come from a numpy seed. One JSON line per
+positions, d_ii, sum d_ij p_j and the CG vector of the implicit viscosity's
+matvec come from a numpy seed. One JSON line per
 engine, and a check that the two engines are bit-equal.
 
     python3 tools/bench_pair_kernels.py [--label TEXT] [--root DIR]
@@ -99,7 +100,9 @@ def main() -> int:
               "pred": torch.where(fluid, p.pos + seeded(rng.normal(
                   0.0, 0.1 * params.particle_radius, (n, 3))), p.pos),
               "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
-              "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3)))}
+              "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3))),
+              "x": torch.where(fluid, p.vel + seeded(rng.normal(
+                  0.0, 0.1, (n, 3))), torch.zeros_like(p.vel))}
     rigid_rows = p.material == MATERIAL_RIGID
 
     def run(name, env):

@@ -20,7 +20,8 @@ times, and lists its kernels. Ends with one JSON line of the same numbers.
 
 ``--method`` overrides the scene's simulation method, ``--pair-backend
 pallas`` profiles the slab-window pair engine instead of the cell-list
-engine, ``--warm`` turns both DFSPH warm starts on.
+engine, ``--warm`` turns both DFSPH warm starts on. With implicit viscosity
+the iteration counts end with the CG's.
 """
 from __future__ import annotations
 
@@ -112,6 +113,7 @@ def main() -> int:
 
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.sim import Plumbing, Simulation
+    from sph_project_tpu_torch.solvers import viscosity_cg
 
     card = subprocess.run(["nvidia-smi", "-i", "0",
                            "--query-gpu=name,power.limit",
@@ -129,16 +131,20 @@ def main() -> int:
     torch.cuda.synchronize()
     start = sim.state
 
+    implicit = scene.params.viscosity_method == "implicit"
+
     def timed_steps():
         """Runs STEPS steps from ``start``; (per-step wall ms, iteration
-        counts)."""
+        counts, with the implicit viscosity's CG iterations last)."""
         sim.state = start
         iters, ms = [], []
         for _ in range(STEPS):
             t0 = time.perf_counter()
             d = sim.step()
             iters.append(tuple(int(d[k]) for k in ("solver_iters",
-                                                   "div_iters") if k in d))
+                                                   "div_iters") if k in d)
+                         + ((viscosity_cg.last_solve["cg_iters"],)
+                            if implicit else ()))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         return ms, iters
@@ -164,7 +170,7 @@ def main() -> int:
           f"{busy_us / steps / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.3f}; kernels per step "
           f"{len(kernels) / steps:.1f}; solver iterations "
-          f"(pressure, divergence) {iters}")
+          f"(pressure, divergence{', CG' if implicit else ''}) {iters}")
     print(f"per-step wall ms without the profiler {wall_ms}, under it "
           f"{prof_ms}")
     print_table("device time per step by family (x: launches):", by_family,
