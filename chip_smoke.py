@@ -84,8 +84,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    (viscosity 2000: 830 CG iterations at impact) and a column falling
    through an emitter height, with the iteration counts, the CG's and the
    fluid count equal every step;
-6. one JSON line with every kernel record, the card line again, then the
-   result.
+6. the port's driver at full size, through the CLI
+   (``sph_project_tpu_torch.cli.main``, what ``run_simulation_torch.py``
+   runs) and the checkpoint module, checkpoints under ``build/smoke/``: the
+   flagship, cold DFSPH through the cell-list kernel, through impact to the
+   JAX bench's settle point (1,250 steps, 0.75 s), with the density solver
+   iterating more than once on each of its last steps and the bench's gates
+   at the end; a resume from that checkpoint, 20 steps straight through
+   against 10, a checkpoint, a fresh ``load_scene`` + ``Simulation`` and 10
+   more, bit for bit; the settled regime from that checkpoint per method and
+   engine (DFSPH cold and warm through each engine; WCSPH, PCISPH, IISPH
+   through the cell-list engine), timed; ``dragon_bath_dfsph.json`` through
+   the fluid's arrival at the dragons (the first step with a fluid force on
+   one, read before the body step consumes it), with finite bodies and a
+   fluid force in the last step. Launch counts are zeroed just before each
+   run and read just after, as in phase 3. Then the DFSPH bodies of both
+   kernels on the settled states and the rigid-body variants of both
+   kernels on the post-impact ``dragon_bath`` state (with its wrench and
+   touching pairs) against their plain versions, the kernels bit-equal;
+7. one JSON line with every kernel record (its launches count phase 6's
+   runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -268,6 +286,32 @@ ENGINES = {
     "pair_slab": ("sph_project_tpu_torch/csrc/pair_slab.cu",
                   "sph_project_tpu/ops/pair_exec.py:204")}
 PERMUTE_REPLACES = "sph_project_tpu/ops/permute.py:48"
+# phase 6, the driver at full size. The JAX bench's settle point: 0.75 s of
+# simulated time, 1,250 steps at the flagship's dt of 0.6 ms (bench.py:19-21);
+# the block hits the floor near step 265
+SETTLE_STEPS = 1250
+# the density solver must iterate more than once on each of the last steps
+SETTLED_TAIL = 10
+# steps from the settled checkpoint straight through, and in two halves
+RESUME_STEPS = 20
+# the settled regime per method and engine, from the settled checkpoint:
+# steps to warm up, steps timed
+SETTLED_WARMUP = 2
+SETTLED_STEPS = 5
+SETTLED_PATHS = (("DFSPH cold, cell-list kernel", {}),
+                 ("DFSPH warm start, cell-list kernel", WARM),
+                 ("DFSPH cold, slab-window kernel", SLAB),
+                 ("DFSPH warm start, slab-window kernel", dict(WARM, **SLAB)),
+                 ("WCSPH, cell-list kernel", dict(simulation_method="wcsph")),
+                 ("PCISPH, cell-list kernel", dict(simulation_method="pcisph")),
+                 ("IISPH, cell-list kernel", dict(simulation_method="iisph")))
+# the settled states the kernels are checked on
+SETTLED_MEASURED = ("DFSPH cold, cell-list kernel",
+                    "DFSPH cold, slab-window kernel")
+# dragon_bath at dt 2 ms: its fluid column reaches the dragons after about
+# 0.6 s; the run ends at 0.8 s
+DRAGON = "dragon_bath_dfsph.json"
+DRAGON_STEPS = 400
 
 
 def check(ok: bool, what: str) -> None:
@@ -456,6 +500,308 @@ def path_kind(scene: str, params) -> str:
     return f"{scene[:-5]}: {method}"
 
 
+def median(xs) -> float:
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def zero_counts() -> None:
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.ops import permute as permlib
+    for k in pk.launches:
+        pk.launches[k] = 0
+    permlib.launches["permute"] = 0
+
+
+def read_counts() -> dict:
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.ops import permute as permlib
+    torch.cuda.synchronize()
+    return dict(pk.launches, permute=permlib.launches["permute"])
+
+
+def check_launches(label: str, params, engine: str, launches: dict) -> None:
+    """Every kernel of the path launched, and no other."""
+    expected = {f"{engine}/{b}" for b in expected_bodies(params)}
+    expected.add("permute")
+    for k, v in launches.items():
+        check((v > 0) == (k in expected),
+              f"{label}: kernel {k} launched {v} times")
+
+
+def check_band(label: str, log: list, rho0: float) -> float:
+    """The per-step gates of a run through impact: the fluid count
+    constant, overflow 0, and the JAX bench's band, density_avg within
+    [0.72, 1.01] rho0 (bench.py:199). Returns the largest density_max, which
+    no gate holds after impact: DFSPH bounds the mean density error, and the
+    densest particle of a settled column passes 1.01 rho0 in the JAX package
+    too (1028.02 in its settled flagship sample, BENCH_r04.json)."""
+    for e in log:
+        s = e["step"]
+        check(e["fluid_num"] == log[0]["fluid_num"], f"{label}, step {s}: "
+              f"fluid count {e['fluid_num']}")
+        check(0.72 * rho0 <= e["density_avg"] <= 1.01 * rho0,
+              f"{label}, step {s}: density_avg {e['density_avg']} outside "
+              f"[0.72, 1.01] rho0")
+        check(e["neighbor_overflow"] == 0 and e["sort_overflow"] == 0,
+              f"{label}, step {s}: overflow")
+    return max(e["density_max"] for e in log)
+
+
+class WrenchProbe:
+    """Within ``with``: for every rigid body step, the magnitude of each
+    dynamic body's accumulated SPH force, read before the step consumes it
+    (the force of the fluid: gravity and contact enter inside the step).
+    Kept on the card and read once at the end."""
+
+    def __enter__(self):
+        from sph_project_tpu_torch.rigid import integrator
+        self.integrator, self.orig = integrator, integrator.rigid_body_step
+        self.forces = []
+
+        def probe(p, rigid, params, **kw):
+            bodies = list(params.contact_channels)
+            self.forces.append(rigid.force[bodies].norm(dim=1))
+            return self.orig(p, rigid, params, **kw)
+
+        integrator.rigid_body_step = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.integrator.rigid_body_step = self.orig
+
+    def table(self) -> np.ndarray:
+        """(steps, bodies) of force magnitudes, N."""
+        return torch.stack(self.forces).cpu().numpy()
+
+
+def driver_phase() -> dict:
+    """Phase 6: the port's driver at full size, through the CLI
+    (``sph_project_tpu_torch.cli.main``, what ``run_simulation_torch.py``
+    runs) and the checkpoint module, checkpoints under ``build/smoke/``.
+    Returns the launches of its paths, the simulations the kernel checks
+    run on (the settled flagship under each engine, the post-impact
+    ``dragon_bath`` under each engine) and the numbers it printed."""
+    from sph_project_tpu_torch import bridge, cli
+    from sph_project_tpu_torch import sim as simlib
+    from sph_project_tpu_torch.io import checkpoint
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.scene import load_scene
+
+    out_root = os.path.join(ROOT, "build", "smoke")
+    totals: dict = {}
+    summary: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def run_cli(label, scene, args, out):
+        """One CLI run in this process, counts zeroed just before it and
+        read just after. Returns (simulation, JSONL entries)."""
+        os.makedirs(out, exist_ok=True)
+        log_path = os.path.join(out, "log.jsonl")
+        argv = ["--scene_file", scene, "--no-export", "--quiet",
+                "--output_dir", out, "--log_json", log_path, *args]
+        zero_counts()
+        t0 = time.perf_counter()
+        sim = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        add(launches)
+        check_launches(label, sim.params, "pair_pass", launches)
+        with open(log_path) as f:
+            log = [json.loads(line) for line in f]
+        peak = check_band(label, log, sim.params.density0)
+        say(f"[6] {label}: run_simulation_torch {' '.join(argv)}: "
+            f"{len(log)} steps in {seconds:.1f} s (load, prepare and "
+            f"checkpoints included); largest density_max "
+            f"{peak / sim.params.density0:.4f} rho0; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        return sim, log
+
+    def iters_of(log):
+        return [tuple(int(e[k]) for k in ("solver_iters", "div_iters")
+                      if k in e) for e in log]
+
+    # ---- 6a. the flagship through impact to the bench's settle point -----
+    flag_out = os.path.join(out_root, "flagship")
+    sim, log = run_cli(
+        "flagship settle", FLAGSHIP,
+        ["--steps", str(SETTLE_STEPS),
+         "--checkpoint_interval", str(SETTLE_STEPS - 1)], flag_out)
+    params = sim.params
+    rho0, dt = params.density0, params.dt
+    settled_ckpt = os.path.join(flag_out, "ckpt")
+    check(int(sim.state.step_count) == SETTLE_STEPS, "flagship step count")
+    it = iters_of(log)
+    # impact: the first step whose densest particle passes rho0; the
+    # density solver iterates more than once some steps later, when the
+    # mean error passes its tolerance
+    impact = next((e["step"] for e in log if e["density_max"] > rho0), None)
+    iterating = next((s for s, (a, _) in enumerate(it) if a > 1), None)
+    check(impact is not None and iterating is not None,
+          "flagship: no impact, or the density solver never iterates")
+    ms = [e["wall_ms"] for e in log]
+    pre, post = median(ms[1:impact]), median(ms[iterating:])
+    last = log[-1]
+    say(f"[6] flagship: impact (density_max > rho0) at step {impact}, the "
+        f"density solver first iterates more than once at step {iterating}; "
+        f"median ms per step before impact {pre:.2f}, from that step on "
+        f"{post:.2f}, over the last 250 steps {median(ms[-250:]):.2f}")
+    for s in list(range(0, SETTLE_STEPS, 50)) + [SETTLE_STEPS - 1]:
+        e = log[s]
+        say(f"[6] flagship step {s}: {e['wall_ms']:.2f} ms, solver_iters "
+            f"{it[s][0]} div_iters {it[s][1]} density_avg "
+            f"{e['density_avg']:.3f} density_max {e['density_max']:.3f} "
+            f"vel_max {e['vel_max']:.4f}")
+    tail = it[-SETTLED_TAIL:]
+    say(f"[6] flagship, last {SETTLED_TAIL} steps: (solver_iters, div_iters) "
+        f"{tail}")
+    check(all(a > 1 for a, _ in tail), f"flagship: the density solver "
+          f"iterates once on a step among the last {SETTLED_TAIL}")
+    # the JAX bench's gates at its settle point, as its physics_gates
+    # applies them (bench.py:184-202): vel_max*dt at most one particle
+    # diameter, density_avg within [0.72, 1.01] rho0 (its docstring's
+    # [0.75, 0.90], bench.py:25, is not what it applies; its comment puts a
+    # full hydrostatic settle near 0.94 rho0, bench.py:194-196)
+    gate_avg = last["density_avg"] / rho0
+    gate_cfl = last["vel_max"] * dt / params.particle_diameter
+    say(f"[6] flagship at step {SETTLE_STEPS} (the bench's settle point, "
+        f"{SETTLE_STEPS * dt:.2f} s): density_avg {gate_avg:.4f} rho0 "
+        f"(gate [0.72, 1.01]), density_max "
+        f"{last['density_max'] / rho0:.4f} rho0, vel_max*dt {gate_cfl:.4f} "
+        f"particle diameters (gate <= 1)")
+    check(0.72 <= gate_avg <= 1.01, f"settled density_avg {gate_avg} rho0")
+    check(gate_cfl <= 1.0, f"settled vel_max*dt {gate_cfl} diameters")
+    summary["flagship"] = dict(impact_step=impact, iterating_step=iterating,
+                               ms_before=pre, ms_after=post, last_iters=tail,
+                               density_avg_rho0=gate_avg, cfl=gate_cfl)
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- 6b. resume: straight through against halves ----------------------
+    half = SETTLE_STEPS + RESUME_STEPS // 2
+    end = SETTLE_STEPS + RESUME_STEPS
+    straight, log_s = run_cli(
+        "resume, straight", FLAGSHIP,
+        ["--resume", settled_ckpt, "--steps", str(end)],
+        os.path.join(out_root, "straight"))
+    _, log_a = run_cli(
+        "resume, first half", FLAGSHIP,
+        ["--resume", settled_ckpt, "--steps", str(half),
+         "--checkpoint_interval", str(half - 1)],
+        os.path.join(out_root, "half"))
+    resumed, log_b = run_cli(
+        "resume, second half", FLAGSHIP,
+        ["--resume", os.path.join(out_root, "half", "ckpt"),
+         "--steps", str(end)], os.path.join(out_root, "resumed"))
+    check([e["step"] for e in log_a + log_b] == list(range(SETTLE_STEPS, end)),
+          "resume: step numbers")
+    check(iters_of(log_s) == iters_of(log_a + log_b),
+          f"resume: iteration counts {iters_of(log_s)} vs "
+          f"{iters_of(log_a + log_b)}")
+    differ = [".".join(p) for (p, a), (_, b) in zip(
+        bridge.walk(straight.state), bridge.walk(resumed.state))
+        if not torch.equal(a, b)]
+    check(not differ, f"resume: arrays differ from the run straight "
+          f"through: {differ}")
+    say(f"[6] resume: {RESUME_STEPS} steps from step {SETTLE_STEPS} straight "
+        f"through equal {RESUME_STEPS // 2} steps, a checkpoint, a fresh "
+        f"load_scene + Simulation, the restore and {RESUME_STEPS // 2} more, "
+        f"bit for bit (every state array, positions and velocities "
+        f"included); iterations {iters_of(log_s)}")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+    # ---- 6c. the settled regime, per method and engine ---------------------
+    kept = {}
+    summary["settled"] = {}
+    for label, overrides in SETTLED_PATHS:
+        scene, state = load_scene(FLAGSHIP, **overrides)
+        engine = "pair_slab" if overrides.get("pair_backend") == "pallas" \
+            else "pair_pass"
+        zero_counts()
+        sim = simlib.Simulation(scene, state)
+        sim.state = checkpoint.restore(settled_ckpt, sim.state, sim.params)
+        for _ in range(SETTLED_WARMUP):
+            sim.step()
+        before = read_counts()
+        ms, iters = [], []
+        for _ in range(SETTLED_STEPS):
+            t0 = time.perf_counter()
+            d = sim.step()
+            iters.append(tuple(int(d[k]) for k in ("solver_iters",
+                                                   "div_iters") if k in d))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+        add(launches)
+        check_launches(f"settled {label}", sim.params, engine, launches)
+        per_step = {k: (v - before[k]) / SETTLED_STEPS
+                    for k, v in launches.items() if v - before[k]}
+        say(f"[6] settled {label}: ms per step {[round(x, 2) for x in ms]} "
+            f"(median {np.median(ms):.2f}), iterations {iters}; launches per "
+            f"step {json.dumps(per_step)}")
+        check(bool(torch.isfinite(sim.state.particles.pos).all()),
+              f"settled {label}: positions not finite")
+        summary["settled"][label] = dict(median_ms=float(np.median(ms)),
+                                         iters=iters, launches=per_step)
+        if label in SETTLED_MEASURED:
+            kept[label] = sim
+        del sim
+        torch.cuda.empty_cache()
+
+    # ---- 6d. dragon_bath through the fluid's arrival -----------------------
+    dragon = os.path.join(SCENES, DRAGON)
+    drag_out = os.path.join(out_root, "dragon_bath")
+    with WrenchProbe() as probe:
+        sim, log = run_cli(
+            "dragon_bath", dragon,
+            ["--steps", str(DRAGON_STEPS),
+             "--checkpoint_interval", str(DRAGON_STEPS - 1)], drag_out)
+    forces = probe.table()
+    check(forces.shape == (DRAGON_STEPS, len(sim.params.contact_channels)),
+          f"dragon_bath: {forces.shape[0]} rigid steps")
+    hit = np.nonzero(forces.max(axis=1) > 0)[0]
+    check(len(hit) > 0, "dragon_bath: no fluid force on a dragon")
+    first = int(hit[0])
+    it = np.array(iters_of(log))
+    say(f"[6] dragon_bath: the first fluid force on a dragon at step {first} "
+        f"({first * sim.params.dt:.3f} s); per body at that step "
+        f"{forces[first].tolist()} N, at the last step "
+        f"{forces[-1].tolist()} N; ms per step median "
+        f"{median([e['wall_ms'] for e in log[1:first]]):.2f} before, "
+        f"{median([e['wall_ms'] for e in log[first:]]):.2f} after, "
+        f"{median([e['wall_ms'] for e in log[-50:]]):.2f} over the last 50 "
+        f"steps; solver_iters mean {it[1:first, 0].mean():.2f} before, "
+        f"{it[first:, 0].mean():.2f} after (most {it[:, 0].max()}); "
+        f"iterations of the last steps {iters_of(log)[-5:]}")
+    check(forces[-1].max() > 0, "dragon_bath: no fluid force in the last step")
+    rigid = sim.state.rigid
+    for oid in sim.params.contact_channels:
+        body = {k: getattr(rigid, k)[oid].tolist()
+                for k in ("com", "vel", "omega")}
+        say(f"[6] dragon_bath body {oid} at step {DRAGON_STEPS}: " + ", ".join(
+            f"{k} ({', '.join(f'{x:.6f}' for x in v)})"
+            for k, v in body.items()))
+        check(all(np.isfinite(v).all() for v in body.values()),
+              f"dragon_bath: body {oid} state not finite")
+    summary["dragon_bath"] = dict(first_wrench_step=first,
+                                  last_force=forces[-1].tolist())
+    del sim
+    torch.cuda.empty_cache()
+    # the post-impact state under each engine, for the kernel checks
+    for engine, overrides in (("pair_pass", {}), ("pair_slab", SLAB)):
+        scene, state = load_scene(dragon, **overrides)
+        sim = simlib.Simulation(scene, state)
+        sim.state = checkpoint.restore(os.path.join(drag_out, "ckpt"),
+                                       sim.state, sim.params)
+        check(pk.engine_of(sim.state.cached_neighbors) == engine,
+              "dragon_bath: engine")
+        kept[f"dragon_bath {engine}"] = sim
+    return dict(launches=totals, sims=kept, summary=summary)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -526,9 +872,7 @@ def main() -> int:
         moved_want = int(params.has_dynamic_rigid
                          and params.simulation_method != "dfsph")
         moved = 0
-        for k in pk.launches:
-            pk.launches[k] = 0
-        permlib.launches["permute"] = 0
+        zero_counts()
         t0 = time.perf_counter()
         sim = simlib.Simulation(scene, state)
         torch.cuda.synchronize()
@@ -603,19 +947,13 @@ def main() -> int:
                     for k, v in body.items()))
                 check(all(np.isfinite(v).all() for v in body.values()),
                       f"step {s}: body {oid} state not finite")
-        torch.cuda.synchronize()
-        launches = dict(pk.launches)
-        last_step = {k: v - before[k] for k, v in launches.items()}
-        launches["permute"] = permlib.launches["permute"]
+        launches = read_counts()
+        last_step = {k: v - before[k] for k, v in pk.launches.items()}
         say(f"[3] {label}: launches {json.dumps({k: v for k, v in launches.items() if v})}"
             f"; in the last step {json.dumps({k: v for k, v in last_step.items() if v})}")
         check(pk.engine_of(sim.state.cached_neighbors) == engine,
               f"{label}: engine")
-        expected = {f"{engine}/{b}" for b in expected_bodies(params)}
-        expected.add("permute")
-        for k, v in launches.items():
-            check((v > 0) == (k in expected),
-                  f"{label}: kernel {k} launched {v} times")
+        check_launches(label, params, engine, launches)
         check(bool(torch.isfinite(sim.state.particles.pos).all()),
               "non-finite positions")
         if params.has_entries:
@@ -745,9 +1083,11 @@ def main() -> int:
                      for t in fk.values())
         return fields + nbytes(table) + n * 1 + n_out * n * 4
 
-    def check_engine(sim, bodies):
+    def check_engine(sim, bodies, where=None):
         """``bodies`` of the engine of ``sim``'s environment against their
-        plain versions on ``sim``'s state; appends the records."""
+        plain versions on ``sim``'s state; appends the records. With
+        ``where`` (a state of phase 6) the kernel is checked and timed, and
+        neither the plain version's time nor a record is taken."""
         env = sim.state.cached_neighbors
         params, p = sim.params, sim.state.particles
         engine = pk.engine_of(env)
@@ -763,15 +1103,16 @@ def main() -> int:
         read_of = {k: rows_read(env, params, fields, rows)
                    for k, rows in (("fluid", env.produce),
                                    ("rigid", rigid_rows))}
+        tag = f"[6] {where}," if where else "[4]"
         for k, (cand, npairs) in work_of.items():
-            say(f"[4] {engine}, {k} rows: {cand} candidates tested, {npairs} "
+            say(f"{tag} {engine}, {k} rows: {cand} candidates tested, {npairs} "
                 f"pairs inside the radius ({cand / max(npairs, 1):.2f} "
                 f"candidates per pair)")
         table = ((env.starts, env.lens, env.cells) if slab
                  else (env.cells, env.cell_start))
         if slab:
             width = env.lens.sum(1)[env.produce.view(-1, env.block).any(1)]
-            say(f"[4] {engine}: {env.nb} blocks of {env.block} rows, "
+            say(f"{tag} {engine}: {env.nb} blocks of {env.block} rows, "
                 f"{width.numel()} with fluid rows; candidates in a fluid "
                 f"block's 9 windows: median {int(width.median())}, widest "
                 f"{int(width.max())}; widest single window "
@@ -802,8 +1143,8 @@ def main() -> int:
                                              flags), 20)
             # the slab engine's plain version takes seconds: the comparison
             # above was its warm-up
-            plain_ms = cuda_ms(plain, 1, warm_up=False) if slab \
-                else cuda_ms(plain, 2)
+            plain_ms = None if where else cuda_ms(plain, 1, warm_up=False) \
+                if slab else cuda_ms(plain, 2)
             rows = "rigid" if produce is not None else "fluid"
             tests, npairs = work_of[rows]
             n_bytes = pass_bytes(fk, read_of[rows], table, len(out_k), n)
@@ -818,6 +1159,12 @@ def main() -> int:
                 n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
+            if where:
+                say(f"[6] {where}, {engine}/{name}: max_abs_err {err:.3e}, "
+                    f"kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"instruction floor {floor_ms:.4f} ms, "
+                    f"{tests / max(npairs, 1):.2f} candidates per pair")
+                continue
             say(f"[4] {engine}/{name}: max_abs_err {err:.3e}, kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
@@ -847,7 +1194,7 @@ def main() -> int:
                 b = pk.run_cuda(name, cell_env, fk, params, produce, flags)
                 diff = max(float((a[c] - b[c]).abs().max()) for c in a)
                 scale = max(float(b[c].abs().max()) for c in b)
-                say(f"[4] pair_slab vs pair_pass, {name}: largest difference "
+                say(f"{tag} pair_slab vs pair_pass, {name}: largest difference "
                     f"{diff:.3e} (largest sum {scale:.3e})"
                     f"{', bit-equal' if diff == 0.0 else ''}")
                 check(diff == 0.0,
@@ -961,7 +1308,7 @@ def main() -> int:
         return cx.slab("material") == MATERIAL_FLUID
 
     def check_rigid(where, params, env, fields, produce_all, dyn_rows, dt,
-                    measure):
+                    measure, phase=4):
         """Every rigid-body variant under ``env``'s engine on one state
         against its plain version (2e-5 * max(1, max|b|)), and under the slab
         engine against the cell-list kernel, bit for bit. With ``measure``:
@@ -982,6 +1329,11 @@ def main() -> int:
         moved = dict(fields, pos=moved_positions(fields["pos"], com_rows,
                                                  dyn_rows, dt))
         cell_env = pairs.make_pair_env(env.cells, env.produce, params)
+        n_rf = count_pairs(env, params, fields, dyn_rows, fluid_j)
+        n_touch = count_pairs(env, params, fields, dyn_rows, touching_j)
+        say(f"[{phase}] {where}, {engine}: {n_rf} pairs of a dynamic rigid row "
+            f"and a fluid neighbour (the wrench pairs), {n_touch} touching "
+            f"pairs of two bodies with a contact channel")
         if measure:
             cand_all, pairs_all = work_of_rows(env, params, fields, produce_all)
             cand_dyn, pairs_dyn = work_of_rows(env, params, fields, dyn_rows)
@@ -989,14 +1341,9 @@ def main() -> int:
             read_all = rows_read(env, params, fields, produce_all)
             read_dyn = rows_read(env, params, fields, dyn_rows)
             read_moved = rows_read(env, params, moved, dyn_rows)
-            n_rf = count_pairs(env, params, fields, dyn_rows, fluid_j)
-            n_touch = count_pairs(env, params, fields, dyn_rows, touching_j)
             say(f"[4] {where}, {engine}: {int(dyn_rows.sum())} dynamic rigid "
                 f"rows; contact pass: {cand_dyn} candidates tested, "
-                f"{pairs_dyn} pairs inside the radius, {n_touch} touching "
-                f"pairs with a contact channel; {n_rf} pairs of a dynamic "
-                f"rigid row and a fluid neighbour (the wrench pairs); rows "
-                f"whose fields a pass reads: {read_all} of the variants' "
+                f"{pairs_dyn} pairs inside the radius; rows whose fields a pass reads: {read_all} of the variants' "
                 f"producing rows and their neighbours, {read_dyn} of the "
                 f"dynamic rows' ({read_moved} after the move)")
         for rec, body, rigid_flag in RIGID_VARIANTS:
@@ -1031,7 +1378,7 @@ def main() -> int:
                 check(diff == 0.0, f"{where}: the two pair kernels are not "
                       f"bit-equal on {rec}: {diff}")
                 same = ", bit-equal to the cell-list kernel"
-            say(f"[4] {where}, {engine}/{rec}: max_abs_err {err:.3e} "
+            say(f"[{phase}] {where}, {engine}/{rec}: max_abs_err {err:.3e} "
                 f"(largest sum {biggest:.3e}){same}")
             if not measure:
                 continue
@@ -1085,6 +1432,7 @@ def main() -> int:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 issue_floor_ms=floor_ms, tests_per_pair=tests / max(npairs, 1),
                 launches_per_step=per_step))
+        return n_rf, n_touch
 
     def check_rigid_pile_up():
         """The rigid-body variants on the pile-up state under both kernels:
@@ -1101,8 +1449,8 @@ def main() -> int:
             check_rigid("pile-up", params, env, fields, produce | dyn_rows,
                         dyn_rows, 2e-3, measure=False)
 
-    def check_rigid_scene(sim):
-        """The rigid-body variants on a coupled scene's state, measured."""
+    def check_rigid_scene(sim, where="dragon_bath", measure=True, phase=4):
+        """The rigid-body variants on a coupled scene's state."""
         st, params = sim.state, sim.params
         p = st.particles
         env = st.cached_neighbors
@@ -1110,8 +1458,8 @@ def main() -> int:
         fields.update(is_dynamic=p.is_dynamic, com=st.rigid.com.contiguous(),
                       chan=integrator.channel_table(st.rigid, params))
         dyn_rows = integrator.dynamic_rigid_mask(p, st.rigid, params)
-        check_rigid("dragon_bath", params, env, fields, env.produce, dyn_rows,
-                    params.dt, measure=True)
+        return check_rigid(where, params, env, fields, env.produce, dyn_rows,
+                           params.dt, measure=measure, phase=phase)
 
     instr_per_s = instruction_rate()
     say(f"[4] instruction rate {instr_per_s:.4e} per second and row "
@@ -1228,7 +1576,28 @@ def main() -> int:
             f"com {[[round(x, 6) for x in c] for c in last['com'].tolist()]}, "
             f"vel {[[round(x, 5) for x in c] for c in last['vel'].tolist()]}")
 
-    # ---- 6. records --------------------------------------------------------
+    # ---- 6. the driver at full size, and the kernels on its states ---------
+    t0 = time.perf_counter()
+    driven = driver_phase()
+    kept = driven["sims"]
+    for label in SETTLED_MEASURED:
+        check_engine(kept.pop(label), DFSPH_BODIES, where=f"settled {label}")
+        torch.cuda.empty_cache()
+    for engine in pk.ENGINES:
+        n_rf, _ = check_rigid_scene(kept.pop(f"dragon_bath {engine}"),
+                                    where="dragon_bath after impact",
+                                    measure=False, phase=6)
+        check(n_rf > 0, "dragon_bath after impact: no wrench pairs")
+        torch.cuda.empty_cache()
+    # the records count every launch of the main paths, phase 6's included
+    for rec in records:
+        if not rec["name"].endswith("@moved"):
+            rec["launches"] += driven["launches"].get(rec["name"], 0)
+    say(f"[6] driver phase and its kernel checks: "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(driven['summary'], default=float)}")
+
+    # ---- 7. records --------------------------------------------------------
     check(len(records) == 2 * (len(pk.BODIES) - 1 + len(RIGID_VARIANTS)) + 1,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))

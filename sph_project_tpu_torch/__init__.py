@@ -2,6 +2,9 @@
 
 The JAX package beside it is the reference; this package imports nothing of
 it and nothing of JAX. Entry points: ``scene.load_scene`` and
-``sim.Simulation`` (``.step()``, ``.run(n)``). The hand-written CUDA kernels
+``sim.Simulation`` (``.step()``, ``.run(n)``), and the CLI driver
+``cli.main`` (``run_simulation_torch.py``, ``python -m
+sph_project_tpu_torch``) with checkpoints, exports, telemetry and a live
+viewer in ``io/`` and ``utils/telemetry.py``. The hand-written CUDA kernels
 live in ``csrc/`` and are built with ``nvcc`` on first use.
 """

@@ -192,3 +192,52 @@ def test_simulation_defaults_to_cuda():
                               simulation_method="dfsph")
     with pytest.raises(RuntimeError, match="CUDA"):
         Simulation(scene, state)
+
+
+# the CLI driver end to end in a fresh interpreter: the root script on the
+# smoke scene with frames, telemetry and checkpoints, a resumed run, and the
+# viewer and renderer modules imported
+_PROBE_CLI = """
+import runpy, sys
+out = sys.argv[1]
+args = ["run_simulation_torch.py", "--scene_file", "data/scenes/smoke_test.json",
+        "--device", "cpu", "--quiet", "--output_dir", out,
+        "--checkpoint_interval", "2", "--log_json", out + "/log.jsonl"]
+sys.argv = args + ["--steps", "3"]
+runpy.run_path("run_simulation_torch.py", run_name="__main__")
+sys.argv = args + ["--steps", "5", "--resume", out + "/ckpt"]
+runpy.run_path("run_simulation_torch.py", run_name="__main__")
+import sph_project_tpu_torch.io.viewer, sph_project_tpu_torch.io.render3d
+for m in ("cli", "io.checkpoint", "io.exporters", "utils.telemetry"):
+    assert "sph_project_tpu_torch." + m in sys.modules, m
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_cli_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE_CLI, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "resumed from" in out.stdout and "at step 3" in out.stdout
+    assert "FOREIGN []" in out.stdout, out.stdout
+    assert os.path.exists(tmp_path / "000000" / "raw_view.png")
+
+
+def test_root_scripts_name_no_jax():
+    """Neither the port's CLI script nor its smoke run imports JAX or the
+    JAX package, on any line."""
+    bad = []
+    for name in ("run_simulation_torch.py", "chip_smoke.py"):
+        with open(os.path.join(ROOT, name)) as f:
+            for n, line in enumerate(f, 1):
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                    if words[1].split(".")[0] in ("jax", "jaxlib", "flax",
+                                                  "sph_project_tpu"):
+                        bad.append(f"{name}:{n}: {line.strip()}")
+    assert not bad, "\n".join(bad)

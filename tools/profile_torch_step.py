@@ -16,12 +16,16 @@ times, and lists its kernels. Ends with one JSON line of the same numbers.
 
     python3 tools/profile_torch_step.py [--scene FILE]
         [--method dfsph|wcsph|pcisph|iisph]
-        [--pair-backend auto|pallas_dma|pallas] [--warm]
+        [--pair-backend auto|pallas_dma|pallas] [--warm] [--resume CKPT]
 
 ``--method`` overrides the scene's simulation method, ``--pair-backend
 pallas`` profiles the slab-window pair engine instead of the cell-list
-engine, ``--warm`` turns both DFSPH warm starts on. With implicit viscosity
-the iteration counts end with the CG's.
+engine, ``--warm`` turns both DFSPH warm starts on, ``--resume`` starts from
+a checkpoint of the scene (``run_simulation_torch.py --checkpoint_interval``;
+``chip_smoke.py`` leaves the settled flagship in
+``build/smoke/flagship/ckpt`` and ``dragon_bath`` after the fluid's arrival
+in ``build/smoke/dragon_bath/ckpt``) instead of its initial state. With
+implicit viscosity the iteration counts end with the CG's.
 """
 from __future__ import annotations
 
@@ -105,12 +109,14 @@ def main() -> int:
     ap.add_argument("--pair-backend", default="auto",
                     choices=("auto", "pallas_dma", "pallas"))
     ap.add_argument("--warm", action="store_true")
+    ap.add_argument("--resume", default=None, metavar="CKPT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from sph_project_tpu_torch.io import checkpoint
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.sim import Plumbing, Simulation
     from sph_project_tpu_torch.solvers import viscosity_cg
@@ -126,6 +132,8 @@ def main() -> int:
                               dfsph_warm_start=args.warm,
                               dfsph_warm_start_div=args.warm)
     sim = Simulation(scene, state)
+    if args.resume:
+        sim.state = checkpoint.restore(args.resume, sim.state, sim.params)
     for _ in range(WARMUP):
         sim.step()
     torch.cuda.synchronize()
@@ -163,8 +171,9 @@ def main() -> int:
     params = scene.params
     print(f"card: {card}; scene {os.path.basename(args.scene)}, method "
           f"{params.simulation_method}, {params.n_particles} particles, "
-          f"pair_backend {args.pair_backend}, warm start {args.warm}; {steps} "
-          f"steps profiled")
+          f"pair_backend {args.pair_backend}, warm start {args.warm}; from "
+          f"{args.resume or 'the initial state'} (step "
+          f"{int(start.step_count)}); {steps} steps profiled")
     print(f"per step: wall {wall_us / steps / 1e3:.3f} ms (under the "
           f"profiler {prof_wall_us / steps / 1e3:.3f} ms), device busy "
           f"{busy_us / steps / 1e3:.3f} ms, idle share "
@@ -206,6 +215,7 @@ def main() -> int:
         "card": card, "scene": os.path.basename(args.scene),
         "method": params.simulation_method,
         "pair_backend": args.pair_backend, "warm": args.warm,
+        "resume": args.resume, "start_step": int(start.step_count),
         "steps": steps, "iters": iters,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "profiled_wall_ms_per_step": prof_wall_us / steps / 1e3,
