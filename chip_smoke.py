@@ -102,7 +102,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    kernels on the settled states and the rigid-body variants of both
    kernels on the post-impact ``dragon_bath`` state (with its wrench and
    touching pairs) against their plain versions, the kernels bit-equal;
-7. one JSON line with every kernel record (its launches count phase 6's
+7. PBF: ``pbf_3d.json`` at full size (468,000 fluid particles, 2D-tuned
+   reference constants in 3D with s_corr off: a violent flow) for
+   ``PBF_STEPS`` steps through each kernel, every step with its wall ms,
+   density range, vel_max*dt, finite positions, overflow 0 and exact
+   launches (one ``nonpressure@poly6``, five of each PBF body, one gather,
+   nothing else); on the state the cell-list run left, the iterations of
+   one step with the candidacy count (the pairs within h at the moved
+   positions that a fresh binning finds and the step-start stencil misses),
+   and at the moved positions of its second iteration the four bodies of a
+   PBF step under both kernels against their plain versions (counts exact,
+   the kernels bit-equal), timed with their bound and instruction floor;
+   ``pbf_2d.json`` for ``PBF_2D_STEPS`` steps on the CPU and on the card
+   through both kernels (the kernels bit-equal every step, the CPU and the
+   card within 1e-5 for ``PBF_2D_NN_STEPS``) and its bodies, the 2D walk,
+   measured the same way; both walks on a 2D pile-up (about 450 neighbours
+   a row, runs of 432 candidates across the staged tiles) and on the 3D
+   pile-up under poly6, with ``nonpressure+rigid`` too;
+8. one JSON line with every kernel record (its launches count phase 6's
    runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -246,7 +263,12 @@ OPS_PER_PAIR = {"density": 15, "alpha": 24, "nonpressure": 55,
                 "nonpressure_warm": 71, "pressure": 25,
                 "pcisph_density_pred": 21, "iisph_dii": 25, "iisph_aii": 33,
                 "iisph_density_star": 24, "iisph_dij_pj": 26,
-                "iisph_sum_i": 47, "rigid_contact": 5}
+                "iisph_sum_i": 47, "rigid_contact": 5,
+                # PBF (poly6/spiky from the distance: one sqrt, the kernel
+                # form, its zero conditions); nonpressure@poly6 takes two
+                # sqrt and two kernel forms in place of the cubic's rsqrt
+                "pbf_density": 14, "pbf_lambda": 30, "pbf_fix": 40,
+                "nonpressure@poly6": 62}
 # the viscous passes' operations per pair by the neighbour's material,
 # (fluid j, rigid j): the matvec leaves a rigid j out after one compare, the
 # prep adds b's rigid term for it
@@ -312,6 +334,21 @@ SETTLED_MEASURED = ("DFSPH cold, cell-list kernel",
 # 0.6 s; the run ends at 0.8 s
 DRAGON = "dragon_bath_dfsph.json"
 DRAGON_STEPS = 400
+# phase 7, PBF: pbf_3d.json at full size (468,000 fluid particles) through
+# each kernel, steps per engine; pbf_2d.json on the CPU and the card
+PBF_3D = "pbf_3d.json"
+PBF_3D_FLUID = 468000
+PBF_STEPS = {"pair_pass": 40, "pair_slab": 10}
+PBF_2D = "pbf_2d.json"
+PBF_2D_STEPS = 20
+# the CPU and the card keep pbf_2d's fluid within NN_TOL for this many steps
+# (a float32 rounding difference doubles about every step at its dt of
+# 0.05 s; the CPU tests hold the port to the JAX package for 5 steps)
+PBF_2D_NN_STEPS = 4
+# the bodies of a PBF step: launches per step (one non-pressure pass, then
+# the three passes in each of the 5 position iterations)
+PBF_BODIES = ("nonpressure", "pbf_density", "pbf_lambda", "pbf_fix")
+PBF_ITERS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -994,7 +1031,9 @@ def main() -> int:
     total_launches = {k: sum(p[k] for p in path_launches)
                       for k in path_launches[0]}
     for k, v in total_launches.items():
-        check(v > 0, f"kernel {k} launched on no path")
+        # PBF's bodies, the poly6 and the 2D instances run in phase 7
+        if "@" not in k and "/pbf_" not in k:
+            check(v > 0, f"kernel {k} launched on no path")
 
     # ---- 4. kernels vs plain versions at the flagship's shapes -------------
     records = []
@@ -1597,8 +1636,303 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(driven['summary'], default=float)}")
 
-    # ---- 7. records --------------------------------------------------------
-    check(len(records) == 2 * (len(pk.BODIES) - 1 + len(RIGID_VARIANTS)) + 1,
+    def pbf_fields(p, dens, lam):
+        return {"pos": p.pos, "vel": p.vel, "material": p.material,
+                "mass": p.mass, "rest_volume": p.rest_volume,
+                "inv_rho": common._inv_rho(p), "density": dens, "lam": lam,
+                "is_dynamic": p.is_dynamic, "object_id": p.object_id}
+
+    def pbf_count(env, params, fields, produce):
+        """Neighbour counts at ``fields["pos"]`` over ``env``, per row."""
+        return pk.run_cuda("pbf_density", env, fields, params, produce,
+                           flags=pk.COUNT)["cnt"]
+
+    def fresh_env(params, pos, fields, produce):
+        """A pair environment binned on ``pos`` itself: the rows sorted by
+        their cells at ``pos``; returns (env, sorted fields, produce)."""
+        cells = nblib.flat_cell_ids(pos, fields["material"] != MATERIAL_NONE,
+                                    params)
+        perm = nblib.sort_permutation(cells)
+        moved = {k: v[perm].contiguous() for k, v in fields.items()}
+        env = pairs.make_pair_env(cells[perm].contiguous(), produce[perm],
+                                  params)
+        return env, moved, produce[perm].contiguous()
+
+    def check_pbf_bodies(tag, params, envs, fields, produce, launches,
+                         measure=True):
+        """The bodies of a PBF step under both kernels on one state (the
+        moved positions in ``fields["pos"]``) against their plain versions,
+        neighbour counts exact, the two kernels bit-equal; with ``measure``
+        the times, the bound and a record per body and engine."""
+        outs = {}
+        for engine, env in envs.items():
+            slab = engine == "pair_slab"
+            if measure:
+                rows = torch.nonzero(produce).flatten()
+                ranges = pairs.window_pieces if slab else pairs.candidate_ranges
+                tests = int(ranges(env, rows)[1].sum())
+                npairs = int(pbf_count(env, params, fields, produce).sum())
+                read = rows_read(env, params, fields, produce)
+                table = ((env.starts, env.lens, env.cells) if slab
+                         else (env.cells, env.cell_start))
+            for body in PBF_BODIES:
+                flags = pk.COUNT if body == "pbf_density" else 0
+                fk = {k: fields[k] for k in pk.fields_of(body, flags)}
+
+                def kernel(e=env):
+                    return pk.run_cuda(body, e, fk, params, produce, flags)
+
+                def plain():
+                    return pk.run_plain_body(body, env, fk, params, produce,
+                                             flags)
+
+                out_k, out_p = kernel(), plain()
+                torch.cuda.synchronize()
+                err = 0.0
+                for c in out_k:
+                    e = float((out_k[c] - out_p[c]).abs().max())
+                    err = max(err, e)
+                    if c == "cnt":
+                        check(e == 0.0, f"{tag}, {engine}/{body}: counts differ")
+                    lim = TOL * max(1.0, float(out_p[c].abs().max()))
+                    check(e <= lim, f"{tag}, {engine}/{body}.{c}: max error "
+                          f"{e} > {lim}")
+                outs[(engine, body)] = out_k
+                key = pk.params_key(engine, body, params)
+                say(f"[7] {tag}, {key}: max_abs_err {err:.3e}"
+                    f"{', counts exact' if 'cnt' in out_k else ''}")
+                if not measure:
+                    continue
+                ms = cuda_ms(kernel, 20)
+                plain_ms = cuda_ms(plain, 1, warm_up=False) if slab \
+                    else cuda_ms(plain, 2)
+                opk = f"{body}@poly6" if body == "nonpressure" else body
+                n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[opk])
+                n_bytes = pass_bytes(fk, read, table, len(out_k), params.n_pad)
+                b_ms, b_by = bound_ms(n_bytes, n_ops)
+                floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
+                say(f"[7] {tag}, {key}: kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                    f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.4f} Gop), "
+                    f"instruction floor {floor_ms:.4f} ms, {tests} candidates "
+                    f"tested, {npairs} pairs, launches {launches.get(key, 0)}")
+                records.append(dict(
+                    name=key, route="cuda", source=ENGINES[engine][0],
+                    replaces=ENGINES[engine][1], launches=launches.get(key, 0),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None, issue_floor_ms=floor_ms,
+                    tests_per_pair=tests / max(npairs, 1),
+                    launches_per_step={
+                        "pbf": PBF_ITERS if body != "nonpressure" else 1}))
+        for body in PBF_BODIES:
+            a, b = outs[("pair_slab", body)], outs[("pair_pass", body)]
+            diff = max(float((a[c] - b[c]).abs().max()) for c in a)
+            check(diff == 0.0, f"{tag}: the two pair kernels are not "
+                  f"bit-equal on {body}: {diff}")
+        say(f"[7] {tag}: the two kernels bit-equal on {', '.join(PBF_BODIES)}")
+
+    def pbf_phase():
+        """Phase 7: PBF. pbf_3d.json at full size through each kernel (exact
+        launch counts per step), its bodies at the moved positions of one
+        iteration against their plain versions with the candidacy count,
+        pbf_2d.json on the CPU and the card, and both walks on a 2D pile-up
+        and on the 3D one under poly6."""
+        from sph_project_tpu_torch.solvers import pbf as pbflib
+        launches3: dict = {}
+        kept = None
+        for engine, steps in PBF_STEPS.items():
+            over = SLAB if engine == "pair_slab" else {}
+            t0 = time.perf_counter()
+            scene, state = load_scene(os.path.join(SCENES, PBF_3D), **over)
+            params = scene.params
+            n_fluid = int((state.particles.material == MATERIAL_FLUID).sum())
+            check(n_fluid == PBF_3D_FLUID and params.dim == 3
+                  and params.kernel_type == "poly6", f"{PBF_3D} parameters")
+            zero_counts()
+            sim = simlib.Simulation(scene, state)
+            torch.cuda.synchronize()
+            say(f"[7] {PBF_3D}, {engine}: {n_fluid} fluid particles, n_pad "
+                f"{params.n_pad}, grid {params.grid_num}, h "
+                f"{params.support_radius}, dt {params.dt}, pbfCorrK "
+                f"{params.pbf_corr_k}; loaded and prepared in "
+                f"{time.perf_counter() - t0:.1f} s")
+            step_ms = []
+            want = {pk.params_key(engine, b, params):
+                    PBF_ITERS if b != "nonpressure" else 1 for b in PBF_BODIES}
+            want["permute"] = 1
+            for s in range(steps):
+                before = read_counts()
+                t1 = time.perf_counter()
+                d = sim.step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                got = {k: v - before[k] for k, v in read_counts().items()
+                       if v - before[k]}
+                check(got == want, f"{PBF_3D}, {engine}, step {s}: launches "
+                      f"{got}, not {want}")
+                p = sim.state.particles
+                fl = p.material == MATERIAL_FLUID
+                check(bool(torch.isfinite(p.pos).all()),
+                      f"{PBF_3D}, step {s}: positions not finite")
+                check(int(d["neighbor_overflow"]) == 0
+                      and int(d["sort_overflow"]) == 0,
+                      f"{PBF_3D}, step {s}: overflow")
+                check(int(d["fluid_num"]) == n_fluid, f"step {s}: fluid count")
+                say(f"[7] step {s}: {step_ms[-1]:.2f} ms density min "
+                    f"{float(p.density[fl].min()):.3f} avg "
+                    f"{float(d['density_avg']):.3f} max "
+                    f"{float(d['density_max']):.3f} vel_max*dt "
+                    f"{float(d['vel_max']) * params.dt:.5f} m "
+                    f"({float(d['vel_max']) * params.dt / params.particle_diameter:.3f}"
+                    f" particle diameters)")
+            for k, v in read_counts().items():
+                if v:
+                    launches3[k] = launches3.get(k, 0) + v
+            say(f"[7] {PBF_3D}, {engine}: {steps} steps, mean "
+                f"{np.mean(step_ms):.2f} ms, after the first "
+                f"{np.mean(step_ms[1:]):.2f} ms, median "
+                f"{median(step_ms[1:]):.2f} ms; launches exact every step "
+                f"({json.dumps(want)})")
+            if engine == "pair_pass":
+                kept = sim
+            del sim
+            torch.cuda.empty_cache()
+
+        # (b) the bodies at the moved positions of one iteration, on the
+        # state the cell-list steps left: the step's sort and non-pressure
+        # pass, the advection, then the first iteration
+        sim, params = kept, kept.params
+        st, env = simlib.Plumbing.neighbor_prep(sim.state, params)
+        p, rigid = simlib.Plumbing.non_pressure_acceleration(
+            st.particles, st.rigid, env, st, params)
+        p = common.update_fluid_velocity(p, params)
+        p = common.update_fluid_position(p, rigid, params)
+        p = common.enforce_domain_boundary(p, params, MATERIAL_FLUID)
+        fluid = p.material == MATERIAL_FLUID
+        for it in range(PBF_ITERS):
+            dens = pbflib.compute_density_moving(p, env, params, fluid)
+            lam = pbflib.compute_lambda(p, dens, env, params, fluid)
+            f = pbf_fields(p, dens, lam)
+            kept_n = int(pbf_count(env, params, f, fluid).sum())
+            fenv, fmoved, fprod = fresh_env(params, p.pos, f, fluid)
+            all_n = int(pbf_count(fenv, params, fmoved, fprod).sum())
+            say(f"[7] candidacy, iteration {it}: {all_n} pairs within h at "
+                f"the moved positions (a fresh binning), {kept_n} in the "
+                f"step-start stencil: (a) {all_n - kept_n} missed "
+                f"({(all_n - kept_n) / max(all_n, 1):.3%})")
+            check(all_n >= kept_n, "candidacy: the stencil kept more pairs")
+            if it == 1:
+                fields1 = f
+            dx = pbflib.fix_position(p, lam, env, params, fluid)
+            p = p.replace(pos=p.pos + dx, density=dens)
+        envs = {"pair_pass": pairs.make_pair_env(env.cells, env.produce, params),
+                "pair_slab": pairs.make_slab_env(env.cells, env.produce, params)}
+        check_pbf_bodies(f"{PBF_3D} iteration 1", params, envs, fields1, fluid,
+                         launches3)
+        del kept, sim, st, env, envs, p, fields1, f, fenv, fmoved
+        torch.cuda.empty_cache()
+
+        # (c) pbf_2d on the CPU and the card, 20 steps each (the card through
+        # both kernels)
+        runs = {}
+        launches2: dict = {}
+        for dev, be in (("cpu", "pallas_dma"), ("cuda", "pallas_dma"),
+                        ("cuda", "pallas")):
+            scene, state = load_scene(os.path.join(SCENES, PBF_2D),
+                                      pair_backend=be)
+            zero_counts()
+            sim2 = simlib.Simulation(scene, state, device=dev)
+            pos = []
+            for _ in range(PBF_2D_STEPS):
+                d = sim2.step()
+                sp = sim2.state.particles
+                pos.append(sp.pos[sp.material == MATERIAL_FLUID].cpu().clone())
+            if dev == "cuda":
+                for k, v in read_counts().items():
+                    if v:
+                        launches2[k] = launches2.get(k, 0) + v
+            runs[(dev, be)] = pos
+        for s in range(PBF_2D_STEPS):
+            a, b = runs[("cuda", "pallas_dma")][s], runs[("cpu", "pallas_dma")][s]
+            c = runs[("cuda", "pallas")][s]
+            nn = float(torch.cdist(a.double(), b.double()).min(dim=1)
+                       .values.max())
+            check(torch.equal(a, c), f"{PBF_2D}, step {s}: the two kernels "
+                  f"differ")
+            if s < PBF_2D_NN_STEPS:
+                check(nn < NN_TOL, f"{PBF_2D}, step {s}: CPU and card differ "
+                      f"by {nn}")
+            say(f"[7] {PBF_2D}, step {s}: CPU vs card max nearest-neighbour "
+                f"distance {nn:.3e}; the two kernels bit-equal")
+        say(f"[7] {PBF_2D}: launches on the card {json.dumps(launches2)}")
+        # the 2D bodies on pbf_2d's state after its card steps
+        scene, state = load_scene(os.path.join(SCENES, PBF_2D))
+        sim2 = simlib.Simulation(scene, state)
+        for _ in range(3):
+            sim2.step()
+        params2 = scene.params
+        st, env = simlib.Plumbing.neighbor_prep(sim2.state, params2)
+        p = common.update_fluid_position(st.particles, st.rigid, params2)
+        fluid = p.material == MATERIAL_FLUID
+        dens = pbflib.compute_density_moving(p, env, params2, fluid)
+        lam = pbflib.compute_lambda(p, dens, env, params2, fluid)
+        envs = {"pair_pass": pairs.make_pair_env(env.cells, env.produce, params2),
+                "pair_slab": pairs.make_slab_env(env.cells, env.produce,
+                                                 params2)}
+        check_pbf_bodies(f"{PBF_2D} (the 2D walk)", params2, envs,
+                         pbf_fields(p, dens, lam), fluid, launches2)
+
+        # (d) both walks on pile-ups: the 2D one, and the 3D one under poly6
+        for label, case in (("2D pile-up", pk.pile_up_case_2d()),
+                            ("3D pile-up, poly6", pk.pile_up_case())):
+            params, cells, produce, fields = case
+            params = dataclasses.replace(params, kernel_type="poly6")
+            cells, produce = cells.cuda(), produce.cuda()
+            fields = {k: v.cuda() for k, v in fields.items()}
+            envs = {"pair_pass": pairs.make_pair_env(cells, produce, params),
+                    "pair_slab": pairs.make_slab_env(cells, produce, params)}
+            longest = int(pairs.candidate_ranges(
+                envs["pair_pass"], torch.nonzero(produce).flatten())[1].max())
+            most = int(pbf_count(envs["pair_pass"], params, fields,
+                                 produce).max())
+            say(f"[7] {label}: {int(produce.sum())} rows, most neighbours of "
+                f"a row {most}, longest run of candidates {longest}, widest "
+                f"window {int(envs['pair_slab'].lens.max())}")
+            check_pbf_bodies(label, params, envs, fields, produce, {},
+                             measure=False)
+            # the non-pressure pass with the dynamic-rigid outputs
+            dyn = (fields["material"] == MATERIAL_RIGID) & \
+                (fields["is_dynamic"] > 0)
+            fk = {k: fields[k] for k in pk.fields_of("nonpressure", pk.RIGID)}
+            outs = []
+            for engine, env in envs.items():
+                out_k = pk.run_cuda("nonpressure", env, fk, params,
+                                    produce | dyn, pk.RIGID)
+                out_p = pk.run_plain_body("nonpressure", env, fk, params,
+                                          produce | dyn, pk.RIGID)
+                for c in out_k:
+                    e = float((out_k[c] - out_p[c]).abs().max())
+                    lim = TOL * max(1.0, float(out_p[c].abs().max()))
+                    check(e <= lim, f"{label}, {engine}/nonpressure+rigid.{c}:"
+                          f" max error {e} > {lim}")
+                outs.append(out_k)
+            check(all(torch.equal(outs[0][c], outs[1][c]) for c in outs[0]),
+                  f"{label}: the kernels differ on nonpressure+rigid")
+            say(f"[7] {label}: nonpressure+rigid of both kernels within "
+                f"tolerance and bit-equal")
+
+    # ---- 7. PBF -------------------------------------------------------------
+    t0 = time.perf_counter()
+    pbf_phase()
+    say(f"[7] PBF phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. records --------------------------------------------------------
+    # per engine: every body but the contact pass and the PBF bodies at the
+    # flagship's shapes, the rigid variants, and the bodies of a PBF step in
+    # 3D and in 2D; and the gather
+    n_pbf = len([b for b in pk.BODIES if b.startswith("pbf_")])
+    check(len(records) == 2 * (len(pk.BODIES) - 1 - n_pbf + len(RIGID_VARIANTS)
+                               + 2 * len(PBF_BODIES)) + 1,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))
     say(card)

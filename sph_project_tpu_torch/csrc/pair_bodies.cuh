@@ -1,7 +1,8 @@
-// The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH, over
-// fluid, static walls and dynamic rigid bodies, with standard or implicit
-// viscosity) as device functors, the arguments they read and the cubic
-// spline. Both pair kernels include this header
+// The SPH pair bodies of the ported steps (DFSPH, WCSPH, PCISPH, IISPH, PBF,
+// over fluid, static walls and dynamic rigid bodies, with standard or
+// implicit viscosity) as device functors, the arguments they read and the
+// smoothing kernels: the cubic spline, and PBF's poly6 W with the spiky
+// gradient. Both pair kernels include this header
 // (pair_pass.cu: the cell-list engine; pair_slab.cu: the slab-window
 // engine), so a body is written once and runs under either engine, as a body
 // of the JAX package written against ops/pair_exec.Cx runs under either of
@@ -16,20 +17,29 @@
 // into sums after its other outputs, and the instance without it is the body
 // with no rigid outputs at all.
 //
+// The bodies on PBF's path (nonpressure, rigid_volume and the three PBF
+// bodies) are also templates on the kernel kind K (Cubic or Poly6) and the
+// dimension D; the others are the 3D cubic bodies. A body's D (its member
+// DIM, 3 where it has none: BodyDim) is the dimension the walk runs in.
+//
 // Rounding: both kernels are built with -fmad=false and without fast math,
 // so the squared distance ((R0*R0 + R1*R1) + R2*R2) and every body
 // expression round like the unfused float32 tensor ops of the plain versions.
-// All constants arrive in c[] as floats the host folded in double.
+// All constants arrive in c[] and kc[] as floats the host folded in double.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define MATERIAL_FLUID 1
 #define MATERIAL_RIGID 2
 #define N_CONST 16
-#define FLAG_COUNT 1  // divergence: also count the neighbours
+#define FLAG_COUNT 1  // divergence, pbf_density: also count the neighbours
 #define FLAG_RIGID 2  // the outputs of dynamic rigid bodies
+#define KIND_CUBIC 0
+#define KIND_POLY6 1
 
 enum Body {
   BODY_DENSITY = 0,
@@ -50,12 +60,15 @@ enum Body {
   BODY_RIGID_CONTACT = 15,
   BODY_VISC_PREP = 16,
   BODY_VISC_MATVEC = 17,
+  BODY_PBF_DENSITY = 18,
+  BODY_PBF_LAMBDA = 19,
+  BODY_PBF_FIX = 20,
 };
 
 // Mirrors ops/pair_kernels.py PairArgs (ctypes), field for field.
 struct PairArgs {
-  const float* pos;          // (n, 3)
-  const float* vel;          // (n, 3)
+  const float* pos;          // (n, dim)
+  const float* vel;          // (n, dim)
   const int* cells;          // (n,) sorted flat cell ids
   const int* cell_start;     // (gx*gy*gz + 1,)                 [cell-list]
   const uint8_t* produce;    // (n,) rows whose sums are read
@@ -88,7 +101,19 @@ struct PairArgs {
   float dh2;
   // c[0..3] = h, k, 2k, 6k/h^2 (cubic spline); c[4..] body constants
   float c[N_CONST];
+  const float* lam;          // (n,) PBF's lambda                [pbf_fix]
+  int dim;                   // 3, or 2 (bodies on PBF's path)
+  int kind;                  // KIND_CUBIC, KIND_POLY6
+  // the distance forms of either kind (ops/kernels.py kind_constants): h,
+  // h^2, h^3, the poly6 factor, the spiky factor, the cubic gradient's 6k
+  float kc[6];
 };
+
+// The dimension a body runs in: its member DIM, else 3.
+template <class B, class = void>
+struct BodyDim : std::integral_constant<int, 3> {};
+template <class B>
+struct BodyDim<B, std::void_t<decltype(B::DIM)>> : std::integral_constant<int, B::DIM> {};
 
 // cubic spline W and gw (gradW = gw * R) from the squared distance, as
 // ops/kernels.py cubic_w_gw_d2
@@ -114,6 +139,68 @@ __device__ __forceinline__ float cubic_gw(float d2, const float* c) {
   const float one_q = 1.0f - q;
   const float g = (q <= 0.5f) ? (3.0f * q - 2.0f) : (-one_q * one_q * (c[0] * inv_r));
   return d2 > 1e-10f ? c[3] * g : 0.0f;
+}
+
+// cubic spline W from the distance, with its own q <= 1 cutoff, as
+// ops/kernels.py cubic_W (the r-form; the d2-form above leaves the cutoff to
+// the pair mask)
+__device__ __forceinline__ float cubic_W_r(float r, const float* c) {
+  const float q = r / c[0];
+  const float q2 = q * q;
+  float w;
+  if (q <= 0.5f) {
+    w = c[1] * (6.0f * q * q2 - 6.0f * q2 + 1.0f);
+  } else {
+    const float one_q = 1.0f - q;
+    w = c[2] * one_q * one_q * one_q;
+  }
+  return q <= 1.0f ? w : 0.0f;
+}
+
+// The kernel kinds, each with the two forms the passes take, as the JAX
+// package's solvers take them: w and gw from the squared distance
+// (common._w_d2, _gw_coef), w_r and gw_r from the distance (kernels.W,
+// grad_W_coef). gradW = gw * R.
+struct Cubic {
+  __device__ static float w(float d2, const PairArgs& a) { return cubic_w(d2, a.c); }
+  __device__ static float gw(float d2, const PairArgs& a) { return cubic_gw(d2, a.c); }
+  __device__ static float w_r(float r, const PairArgs& a) { return cubic_W_r(r, a.c); }
+  __device__ static float gw_r(float dist, const PairArgs& a) {
+    const float h = a.c[0], k6 = a.kc[5];
+    const float q = dist / h;
+    const float safe = fmaxf(dist, 1e-12f);
+    const float one_q = 1.0f - q;
+    float c = q <= 0.5f ? k6 * q * (3.0f * q - 2.0f) : -k6 * one_q * one_q;
+    c = (dist > 1e-5f && q <= 1.0f) ? c : 0.0f;
+    return c / (safe * h);
+  }
+};
+
+// PBF's poly6 W (zero at r == 0, like the reference) and spiky gradient,
+// both at sqrt(d2) in the d2-forms (kernels.W(sqrt(d2)), as the JAX
+// package's shared passes take them under poly6)
+struct Poly6 {
+  __device__ static float w_r(float r, const PairArgs& a) {
+    const float x = (a.kc[1] - r * r) / a.kc[2];
+    const float w = a.kc[3] * x * x * x;
+    return (r > 0.0f && r < a.kc[0]) ? w : 0.0f;
+  }
+  __device__ static float gw_r(float dist, const PairArgs& a) {
+    const float safe = fmaxf(dist, 1e-12f);
+    const float x = (a.kc[0] - dist) / a.kc[2];
+    const float c = a.kc[4] * x * x / safe;
+    return (dist > 0.0f && dist < a.kc[0]) ? c : 0.0f;
+  }
+  __device__ static float w(float d2, const PairArgs& a) { return w_r(sqrtf(d2), a); }
+  __device__ static float gw(float d2, const PairArgs& a) { return gw_r(sqrtf(d2), a); }
+};
+
+// (v_i - v_j) . R in the plain versions' order, ((t0 + t1) + t2)
+template <int D>
+__device__ __forceinline__ float dv_dot(const float* v, const float* vj, const float* R) {
+  float s = (v[0] - vj[0]) * R[0] + (v[1] - vj[1]) * R[1];
+  if (D == 3) s = s + (v[2] - vj[2]) * R[2];
+  return s;
 }
 
 struct Density {  // common.compute_density: s
@@ -143,17 +230,19 @@ __device__ __forceinline__ bool wrench_row(const PairArgs& a, int i) {
   return a.material[i] == MATERIAL_RIGID && a.is_dynamic[i] > 0;
 }
 
-// common._nonpressure_outputs: st0..2, acc0..2, and under RIGID on dynamic
-// rigid rows the viscosity force from fluid neighbours at acc[W..W+2]
-// (fpp0..2). c[4] diam^2, c[5] W(diam), c[6] 0.01 h^2, c[7] d2c*viscosity,
-// c[8] d2c*viscosity_b, c[9] density0
-template <bool RIGID, int W = 6>
+// common._nonpressure_outputs: st0..D-1, acc0..D-1, and under RIGID on
+// dynamic rigid rows the viscosity force from fluid neighbours at
+// acc[W..W+D-1] (fpp). c[4] diam^2, c[5] W(diam), c[6] 0.01 h^2, c[7]
+// d2c*viscosity, c[8] d2c*viscosity_b, c[9] density0. K and D: the kernel
+// kind and the dimension (PBF runs it under poly6, and in 2D).
+template <bool RIGID, int W = 6, class K = Cubic, int D = 3>
 struct NonpressureAt {
-  static constexpr int NOUT = RIGID ? W + 3 : 6;
-  float v[3], m_i, inv_rho_i, vol_i;
+  static constexpr int DIM = D;
+  static constexpr int NOUT = RIGID ? W + D : 2 * D;
+  float v[D], m_i, inv_rho_i, vol_i;
   bool wrench;
   __device__ void load(const PairArgs& a, int i) {
-    for (int d = 0; d < 3; ++d) v[d] = a.vel[3 * i + d];
+    for (int d = 0; d < D; ++d) v[d] = a.vel[D * i + d];
     m_i = a.mass[i];
     inv_rho_i = a.inv_rho[i];
     if (RIGID) {
@@ -163,18 +252,17 @@ struct NonpressureAt {
   }
   __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
     const float* c = a.c;
-    const float gw = cubic_gw(d2, c);
+    const float gw = K::gw(d2, a);
     const int mat_j = a.material[j];
     const bool fluid_j = mat_j == MATERIAL_FLUID;
     const bool rigid_j = mat_j == MATERIAL_RIGID;
     const float m_j = a.mass[j];
     if (fluid_j) {
-      const float wst = d2 > c[4] ? cubic_w(d2, c) : c[5];
+      const float wst = d2 > c[4] ? K::w(d2, a) : c[5];
       const float mw = m_j * wst;
-      for (int d = 0; d < 3; ++d) acc[d] += mw * R[d];
+      for (int d = 0; d < D; ++d) acc[d] += mw * R[d];
     }
-    const float v_xy = (v[0] - a.vel[3 * j]) * R[0] + (v[1] - a.vel[3 * j + 1]) * R[1] +
-                       (v[2] - a.vel[3 * j + 2]) * R[2];
+    const float v_xy = dv_dot<D>(v, a.vel + D * j, R);
     const float inv_denom = 1.0f / (d2 + c[6]);
     float coef = 0.0f;
     if (fluid_j) {
@@ -185,10 +273,10 @@ struct NonpressureAt {
       coef = c[8] * m_b * inv_rho_i * inv_denom * v_xy;
     }
     coef = coef * gw;
-    for (int d = 0; d < 3; ++d) acc[3 + d] += coef * R[d];
+    for (int d = 0; d < D; ++d) acc[D + d] += coef * R[d];
     if (RIGID && wrench && fluid_j) {
       const float cw = c[8] * vol_i * m_j * a.inv_rho[j] * inv_denom * v_xy * gw;
-      for (int d = 0; d < 3; ++d) acc[W + d] += cw * R[d];
+      for (int d = 0; d < D; ++d) acc[W + d] += cw * R[d];
     }
   }
 };
@@ -302,30 +390,17 @@ struct DensityAlphaDivergence {  // dfsph.density_alpha_divergence
   }
 };
 
-struct RigidVolume {  // same-object W sum (common.compute_rigid_volume_fixedk)
+// same-object W sum (common.compute_rigid_volume_fixedk)
+template <class K = Cubic, int D = 3>
+struct RigidVolume {
+  static constexpr int DIM = D;
   static constexpr int NOUT = 1;
   int obj;
   __device__ void load(const PairArgs& a, int i) { obj = a.object_id[i]; }
   __device__ void pair(const PairArgs& a, int j, const float*, float d2, float* acc) {
-    if (a.object_id[j] == obj) acc[0] += cubic_w(d2, a.c);
+    if (a.object_id[j] == obj) acc[0] += K::w(d2, a);
   }
 };
-
-// cubic spline W from the distance, with its own q <= 1 cutoff, as
-// ops/kernels.py cubic_W (the r-form; the d2-form above leaves the cutoff to
-// the pair mask)
-__device__ __forceinline__ float cubic_W_r(float r, const float* c) {
-  const float q = r / c[0];
-  const float q2 = q * q;
-  float w;
-  if (q <= 0.5f) {
-    w = c[1] * (6.0f * q * q2 - 6.0f * q2 + 1.0f);
-  } else {
-    const float one_q = 1.0f - q;
-    w = c[2] * one_q * one_q * one_q;
-  }
-  return q <= 1.0f ? w : 0.0f;
-}
 
 // The bodies of WCSPH, PCISPH and IISPH. A neighbour that is neither fluid
 // nor rigid adds a signed zero in the plain versions and is skipped here,
@@ -590,6 +665,96 @@ struct ViscMatvec {
   }
 };
 
+// The three passes of PBF's position iterations (pbf.py), on the moved
+// positions (pos) over the environment of the step's sort; the kernel forms
+// are the distance forms (w_r, gw_r at sqrt(d2)), as the JAX bodies take
+// them. A neighbour that is neither fluid nor rigid is skipped where the
+// plain versions add a signed zero for it.
+
+// compute_density_moving: s, and under FLAG_COUNT the neighbour count cnt
+template <class K, int D>
+struct PbfDensity {
+  static constexpr int DIM = D;
+  static constexpr int NOUT = 2;
+  __device__ void load(const PairArgs&, int) {}
+  __device__ void pair(const PairArgs& a, int j, const float*, float d2, float* acc) {
+    acc[0] += a.rest_volume[j] * K::w_r(sqrtf(d2), a);
+    acc[1] += 1.0f;
+  }
+};
+
+// compute_lambda: sum_sq, vec0..D-1 over fluid and rigid j; a rigid j weighs
+// V_j rho_i / rho0 with row i's density of the iteration. c[4] density0.
+template <class K, int D>
+struct PbfLambda {
+  static constexpr int DIM = D;
+  static constexpr int NOUT = 1 + D;
+  float rho_i;
+  __device__ void load(const PairArgs& a, int i) { rho_i = a.density[i]; }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const int mat_j = a.material[j];
+    float w;
+    if (mat_j == MATERIAL_FLUID) {
+      w = a.mass[j] / a.c[4];
+    } else if (mat_j == MATERIAL_RIGID) {
+      w = a.rest_volume[j] * rho_i / a.c[4];
+    } else {
+      return;
+    }
+    w = w * K::gw_r(sqrtf(d2), a);
+    acc[0] += w * w * d2;
+    for (int d = 0; d < D; ++d) acc[1 + d] += w * R[d];
+  }
+};
+
+// fix_position, before the 1 / rho0 factor: dx0..D-1, the sums of (lam_i +
+// lam_j + s_corr) m_j gradW over fluid j and (2 lam_i + s_corr) V_j rho0
+// gradW over rigid j, s_corr = -k (W / W(dq h))^4 with the fourth power
+// squared twice (lax.integer_pow). c[4] density0, c[5] -k, c[6]
+// max(W(dq h), 1e-30).
+template <class K, int D>
+struct PbfFix {
+  static constexpr int DIM = D;
+  static constexpr int NOUT = D;
+  float lam_i;
+  __device__ void load(const PairArgs& a, int i) { lam_i = a.lam[i]; }
+  __device__ void pair(const PairArgs& a, int j, const float* R, float d2, float* acc) {
+    const int mat_j = a.material[j];
+    if (mat_j != MATERIAL_FLUID && mat_j != MATERIAL_RIGID) return;
+    const float dist = sqrtf(d2);
+    const float gw = K::gw_r(dist, a);
+    const float ratio = K::w_r(dist, a) / a.c[6];
+    const float r2 = ratio * ratio;
+    const float scorr = a.c[5] * (r2 * r2);
+    const float coef = mat_j == MATERIAL_FLUID
+                           ? (lam_i + a.lam[j] + scorr) * a.mass[j]
+                           : (2.0f * lam_i + scorr) * a.rest_volume[j] * a.c[4];
+    const float cg = coef * gw;
+    for (int d = 0; d < D; ++d) acc[d] += cg * R[d];
+  }
+};
+
+// the bodies on PBF's path by kind and dimension
+template <class K, int D>
+using NonpressureKD = NonpressureAt<false, 2 * D, K, D>;
+template <class K, int D>
+using NonpressureRigidKD = NonpressureAt<true, 2 * D, K, D>;
+template <class K, int D>
+using RigidVolumeKD = RigidVolume<K, D>;
+
+// Runs Launch<Body<K, D>> for the launch's kind and dimension.
+template <template <class> class Launch, template <class, int> class Body>
+static int launch_kd(const PairArgs& a, int n_out, cudaStream_t s) {
+  if (a.dim != 2 && a.dim != 3) return (int)cudaErrorInvalidValue;
+  if (a.kind == KIND_CUBIC)
+    return a.dim == 3 ? Launch<Body<Cubic, 3>>::run(a, n_out, s)
+                      : Launch<Body<Cubic, 2>>::run(a, n_out, s);
+  if (a.kind == KIND_POLY6)
+    return a.dim == 3 ? Launch<Body<Poly6, 3>>::run(a, n_out, s)
+                      : Launch<Body<Poly6, 2>>::run(a, n_out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // channel counts the contact body is built for: the count of a launch picks
 // the least that holds it
 #define CONTACT_CHANNELS_SMALL 4
@@ -601,12 +766,24 @@ struct ViscMatvec {
 template <template <class> class Launch>
 static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
   const bool rigid = a.flags & FLAG_RIGID;
+  const int d = a.dim;
+  // the bodies on PBF's path run for any kind and dimension ...
+  switch (body) {
+    case BODY_NONPRESSURE:
+      return rigid ? launch_kd<Launch, NonpressureRigidKD>(a, 3 * d, s)
+                   : launch_kd<Launch, NonpressureKD>(a, 2 * d, s);
+    case BODY_RIGID_VOLUME: return launch_kd<Launch, RigidVolumeKD>(a, 1, s);
+    case BODY_PBF_DENSITY:
+      return launch_kd<Launch, PbfDensity>(a, (a.flags & FLAG_COUNT) ? 2 : 1, s);
+    case BODY_PBF_LAMBDA: return launch_kd<Launch, PbfLambda>(a, 1 + d, s);
+    case BODY_PBF_FIX: return launch_kd<Launch, PbfFix>(a, d, s);
+    default: break;
+  }
+  // ... the others in 3D with the cubic spline
+  if (a.dim != 3 || a.kind != KIND_CUBIC) return (int)cudaErrorInvalidValue;
   switch (body) {
     case BODY_DENSITY: return Launch<Density>::run(a, 1, s);
     case BODY_ALPHA: return Launch<Alpha>::run(a, 4, s);
-    case BODY_NONPRESSURE:
-      return rigid ? Launch<NonpressureAt<true>>::run(a, 9, s)
-                   : Launch<NonpressureAt<false>>::run(a, 6, s);
     case BODY_DIVERGENCE: return Launch<Divergence>::run(a, (a.flags & FLAG_COUNT) ? 2 : 1, s);
     case BODY_CORRECTION:
       return rigid ? Launch<CorrectionAt<true>>::run(a, 6, s)
@@ -614,7 +791,6 @@ static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
     case BODY_DENSITY_ALPHA_DIVERGENCE:
       return rigid ? Launch<DensityAlphaDivergence<true>>::run(a, 8, s)
                    : Launch<DensityAlphaDivergence<false>>::run(a, 7, s);
-    case BODY_RIGID_VOLUME: return Launch<RigidVolume>::run(a, 1, s);
     case BODY_NONPRESSURE_WARM:
       return rigid ? Launch<NonpressureWarm<true>>::run(a, 15, s)
                    : Launch<NonpressureWarm<false>>::run(a, 9, s);

@@ -10,7 +10,8 @@
 // sorted by flat cell id (x*gy + y)*gz + z, so each of the 9 (x+-1, y+-1)
 // neighbour rows of cells is one contiguous index range
 // [cell_start[row+z-1], cell_start[row+z+1+1]), clamped to the grid. There
-// are no caps, so nothing is lost.
+// are no caps, so nothing is lost. In 2D (the grid (gx, 1, gy), flat id
+// x*gy + y) the 3 columns x-1..x+1 are the runs, each over y-1..y+1.
 //
 // Bound: not the compulsory bytes (each field read once, each output written
 // once: tens of MB, 0.02-0.05 ms) but instruction throughput. A row tests about 7
@@ -69,9 +70,8 @@ __global__ void __launch_bounds__(PASS_THREADS) pair_kernel(const __grid_constan
     const int cy = rest % a.gy;
     const int cx = rest / a.gy;
     const int zlo = max(cz - 1, 0), zhi = min(cz + 1, a.gz - 1);
-    for (int s = 0; s < NSEG; ++s) {
-      // the row's run in the cell table ...
-      const int x = cx + s / 3 - 1, y = cy + s % 3 - 1;
+    // one segment: the row's run in the cell table of row of cells (x, y) ...
+    auto segment = [&](int x, int y) {
       int lo = 0, hi = 0;
       if (mine && x >= 0 && x < a.gx && y >= 0 && y < a.gy) {
         const int row = (x * a.gy + y) * a.gz;
@@ -82,6 +82,12 @@ __global__ void __launch_bounds__(PASS_THREADS) pair_kernel(const __grid_constan
       const int ws = __reduce_min_sync(FULL_MASK, lo < hi ? lo : INT_MAX);
       const int we = __reduce_max_sync(FULL_MASK, lo < hi ? hi : 0);
       walk_window(r, a, g, spos, PASS_STAGE_CAP, ws, we, lo, hi);
+    };
+    // the 9 segments (dx, dy), or in 2D the 3 columns dx (y is 0 in (gx, 1, gy))
+    if constexpr (Row<B>::DIM == 3) {
+      for (int s = 0; s < 9; ++s) segment(cx + s / 3 - 1, cy + s % 3 - 1);
+    } else {
+      for (int s = 0; s < 3; ++s) segment(cx + s - 1, cy);
     }
     r.flush(a);
   }

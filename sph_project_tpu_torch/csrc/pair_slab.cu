@@ -1,7 +1,8 @@
 // Slab-window pair pass: for every row i of every particle block, the masked
 // sums of one SPH pair body over the row's candidates in the block's 9
-// windows. One template kernel over the device bodies of pair_bodies.cuh,
-// around the compacted walk of pair_walk.cuh.
+// windows (3 in 2D: the grid (gx, 1, gy), flat id x*gy + y, segments dx).
+// One template kernel over the device bodies of pair_bodies.cuh, around the
+// compacted walk of pair_walk.cuh.
 //
 // Replaces the TPU kernel sph_project_tpu/ops/pair_exec.py `kernel_fn` in
 // `_exec_pallas`. There, blocks of B consecutive cell-sorted rows read 9
@@ -23,9 +24,12 @@
 // tests nothing else. The plain version (ops/pairs.py run_plain_slab) and the
 // JAX executors take the test the other way round: every candidate of the
 // window whose row of cells is `want`, whatever its z-cell. The two differ
-// only in candidates two or more z-cells away from the row's, which lie at
-// least one cell width (>= h) off and fail the distance test, so the pairs
-// kept are the same. A block that spans several (x, y) rows has overlapping
+// only in candidates two or more z-cells away from the row's: at the
+// positions of the sort these lie at least one cell width (>= h) off and
+// fail the distance test, so the pairs kept are the same. On positions moved
+// since (PBF's iterations) the JAX executors keep such pairs and this kernel
+// does not: a row's candidates are those of its stencil at the sort, as
+// under the cell-list kernel (the port's plain version takes the same piece). A block that spans several (x, y) rows has overlapping
 // windows; the pieces keep every pair counted once. Then j != i and
 // |x_i - x_j|^2 < h^2, as in the cell-list kernel and in the same order for
 // one row (segments in (dx, dy) order, j ascending), so the two kernels'
@@ -80,10 +84,11 @@ __global__ void __launch_bounds__(MAX_BLOCK) slab_kernel(const __grid_constant__
     const int cy = rest % a.gy;
     const int cx = rest / a.gy;
     const int zlo = max(cz - 1, 0), zhi = min(cz + 1, a.gz - 1);
+    constexpr int NSEG = Row<B>::DIM == 3 ? 9 : 3;
     const int* starts = a.starts + (size_t)blockIdx.x * NSEG;
     const int* lens = a.lens + (size_t)blockIdx.x * NSEG;
-    for (int s = 0; s < NSEG; ++s) {
-      const int x = cx + s / 3 - 1, y = cy + s % 3 - 1;
+    // segment s, of row of cells (x, y)
+    auto segment = [&](int s, int x, int y) {
       const int ws = starts[s], we = ws + lens[s];
       // the row's piece of the window: the candidates whose cell id lies in
       // the three z-cells around the row's in that row of cells
@@ -94,6 +99,12 @@ __global__ void __launch_bounds__(MAX_BLOCK) slab_kernel(const __grid_constant__
         hi = lower_bound(a.cells, lo, we, want + zhi + 1);
       }
       walk_window(r, a, g, spos, SLAB_STAGE_CAP, ws, we, lo, hi);
+    };
+    // the 9 segments (dx, dy), or in 2D the 3 columns dx (y is 0 in (gx, 1, gy))
+    if constexpr (NSEG == 9) {
+      for (int s = 0; s < 9; ++s) segment(s, cx + s / 3 - 1, cy + s % 3 - 1);
+    } else {
+      for (int s = 0; s < 3; ++s) segment(s, cx + s - 1, cy);
     }
     r.flush(a);
   }

@@ -8,11 +8,14 @@
 // all its rows, and each row has one contiguous run [lo, hi) inside it; the
 // engine says where both lie. walk_window() stages the window's positions in
 // shared memory with cp.async, a tile at a time, 16 bytes a candidate so
-// that one load fetches a position; a tile no row has a run in is skipped
-// before it is loaded. The work per candidate is split in two so that the
-// expensive half runs on full warps:
+// that one load fetches a position (8 bytes in 2D, in the same room: the
+// tiles keep their size, so the kernels keep their shared memory and
+// occupancy in 2D); a tile no row has a run in is skipped before it is
+// loaded. The work per candidate is split in two so that the expensive half
+// runs on full warps:
 //
-//   test   R = x_i - x_j, d2 = (R0*R0 + R1*R1) + R2*R2, d2 < h^2, j != i,
+//   test   R = x_i - x_j, d2 = (R0*R0 + R1*R1) + R2*R2 (2D: R0*R0 + R1*R1),
+//          d2 < h^2, j != i,
 //          from the staged positions (rows of one cell read the same
 //          words); a candidate that passes is appended to the row's own
 //          short list in shared memory (LIST_CAP indices j);
@@ -27,13 +30,28 @@
 // same order under both engines and are bit-equal between them. The body
 // phase recomputes R and d2 from the same operands in the same order as the
 // test, so the rounding at the support radius is the test's.
+//
+// The walk is a template on the dimension, the body's DIM (BodyDim). A 2D
+// grid (gx, gy), whose flat cell id is x*gy + y, arrives as the 3D grid
+// (gx, 1, gy) with the same ids (ops/pairs.py grid3): a row of cells is one
+// x, and a row's stencil is the 3 segments dx = -1, 0, 1, each over the
+// three cells y-1..y+1 of that column.
 #pragma once
 
 #include "pair_bodies.cuh"
 
 #define FULL_MASK 0xffffffffu
-#define NSEG 9  // segments (dx, dy) of a row's stencil
 #define LIST_CAP 32  // entries of a row's list
+
+// a staged candidate position: 16 bytes in 3D, 8 in 2D
+template <int DIM>
+struct Staged {
+  using type = float4;
+};
+template <>
+struct Staged<2> {
+  using type = float2;
+};
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -63,9 +81,11 @@ struct BlockGroup {
 // One row's state: its position, the body's own fields, the sums and the list.
 template <class B>
 struct Row {
+  static constexpr int DIM = BodyDim<B>::value;
+  using S = typename Staged<DIM>::type;
   B body;
   float acc[B::NOUT];
-  float x0, x1, x2;
+  float x[DIM];
   int i;
   int* list;  // entry k at list[k * stride]
   int* top;   // where the next entry goes
@@ -77,25 +97,27 @@ struct Row {
     i = row;
     list = top = list_;
     stride = stride_;
-    x0 = x1 = x2 = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) x[d] = 0.0f;
     if (mine) {
       body.load(a, row);
-      x0 = a.pos[3 * row];
-      x1 = a.pos[3 * row + 1];
-      x2 = a.pos[3 * row + 2];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) x[d] = a.pos[DIM * row + d];
     }
+  }
+
+  __device__ __forceinline__ float dist2(const float* R) const {
+    return DIM == 3 ? R[0] * R[0] + R[1] * R[1] + R[2] * R[2] : R[0] * R[0] + R[1] * R[1];
   }
 
   // The body over the listed neighbours, in the order they were found.
   __device__ void flush(const PairArgs& a) {
     for (const int* q = list; q != top; q += stride) {
       const int j = *q;
-      float R[3];
-      R[0] = x0 - a.pos[3 * j];
-      R[1] = x1 - a.pos[3 * j + 1];
-      R[2] = x2 - a.pos[3 * j + 2];
-      const float d2 = R[0] * R[0] + R[1] * R[1] + R[2] * R[2];
-      body.pair(a, j, R, d2, acc);
+      float R[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) R[d] = x[d] - a.pos[DIM * j + d];
+      body.pair(a, j, R, dist2(R), acc);
     }
     top = list;
   }
@@ -104,10 +126,14 @@ struct Row {
   // candidate passes (the entry is free) and kept only if it does, so the
   // lanes of a warp do not part ways here.
   __device__ __forceinline__ void test(const PairArgs& a, const float4 p, int j) {
-    const float R0 = x0 - p.x;
-    const float R1 = x1 - p.y;
-    const float R2 = x2 - p.z;
-    const float d2 = R0 * R0 + R1 * R1 + R2 * R2;
+    const float R[3] = {x[0] - p.x, x[1] - p.y, x[DIM - 1] - p.z};
+    test_d2(a, dist2(R), j);
+  }
+  __device__ __forceinline__ void test(const PairArgs& a, const float2 p, int j) {
+    const float R[2] = {x[0] - p.x, x[1] - p.y};
+    test_d2(a, dist2(R), j);
+  }
+  __device__ __forceinline__ void test_d2(const PairArgs& a, float d2, int j) {
     *top = j;
     top += (d2 < a.dh2 && j != i) ? stride : 0;
   }
@@ -115,7 +141,7 @@ struct Row {
   // Tests candidates j0 <= j < j1, candidate j's position staged at sp[j].
   // Every lane of the warp calls it, with an empty run if it has none: the
   // decision to flush is taken by the warp.
-  __device__ void walk(const PairArgs& a, const float4* sp, int j0, int j1) {
+  __device__ void walk(const PairArgs& a, const S* sp, int j0, int j1) {
     int j = j0;
     const int* const full = list + LIST_CAP * stride;
     for (;;) {
@@ -131,22 +157,24 @@ struct Row {
 };
 
 // One segment of one group: stages the window [ws, we) of sorted positions
-// through `spos` (room for `cap` candidates) a tile at a time; each row tests
-// its run [lo, hi) (empty: lo >= hi) as the tiles pass. ws, we and cap are
-// the same for every thread of the group.
+// through `room` (room for `cap` candidates of 16 bytes) a tile at a time;
+// each row tests its run [lo, hi) (empty: lo >= hi) as the tiles pass. ws,
+// we and cap are the same for every thread of the group.
 template <class G, class B>
-__device__ void walk_window(Row<B>& r, const PairArgs& a, const G& g, float4* spos, int cap,
+__device__ void walk_window(Row<B>& r, const PairArgs& a, const G& g, float4* room, int cap,
                             int ws, int we, int lo, int hi) {
+  constexpr int DIM = Row<B>::DIM;
+  using S = typename Row<B>::S;
+  S* spos = reinterpret_cast<S*>(room);
   for (int t0 = ws; t0 < we; t0 += cap) {
     const int t1 = min(t0 + cap, we);
     const int j0 = max(lo, t0), j1 = min(hi, t1);
     if (!g.any(j0 < j1)) continue;
-    const float* src = a.pos + 3 * (size_t)t0;
+    const float* src = a.pos + DIM * (size_t)t0;
     for (int c = g.tid; c < t1 - t0; c += g.size()) {
       float* dst = reinterpret_cast<float*>(spos + c);
-      cp_async4(dst, src + 3 * c);
-      cp_async4(dst + 1, src + 3 * c + 1);
-      cp_async4(dst + 2, src + 3 * c + 2);
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cp_async4(dst + d, src + DIM * c + d);
     }
     cp_async_wait_all();
     g.sync();

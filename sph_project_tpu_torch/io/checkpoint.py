@@ -83,14 +83,17 @@ def restore(path: str, template: SimState, params: SimParams) -> SimState:
 
 
 def _sorted_with_env(state: SimState, params: SimParams) -> SimState:
-    """Rows sorted by cell (every per-row array, with the same stable sort
-    as a step), then the pair environment over them."""
+    """Rows sorted by cell (the arrays a step carries across its sort, with
+    the same stable sort, so that a resumed run goes on bit for bit, also in
+    the arrays a step leaves where they are), then the pair environment over
+    them."""
     p = state.particles
     cells = nblib.flat_cell_ids(p.pos, p.material != MATERIAL_NONE, params)
     perm = nblib.sort_permutation(cells)
     if not torch.equal(perm, torch.arange(params.n_pad, device=perm.device)):
-        rows = {k: v for k, v in bridge.walk(state)
-                if k[0] != "rigid" and v.dim() and v.shape[0] == params.n_pad}
+        keys, extras = simlib.permuted_keys(params)
+        carried = {("particles", k) for k in keys} | {(k,) for k in extras}
+        rows = {k: v for k, v in bridge.walk(state) if k in carried}
         out = permlib.permute_fields(perm, {".".join(k): v
                                             for k, v in rows.items()})
         arrays = dict(bridge.walk(state))

@@ -1,10 +1,14 @@
-"""SPH smoothing kernels on tensors (the cubic spline).
+"""SPH smoothing kernels on tensors: the cubic spline, and PBF's poly6 W with
+the spiky gradient.
 
-The JAX package's ``ops/kernels.py``, cubic kernel only, written with the
-same expression order so float32 results agree: Python-float constants are
-folded in double on the host and enter the tensor arithmetic as float32, as
-JAX folds them. The CUDA pair bodies (``csrc/pair_bodies.cuh``) take the same
-folded constants from :func:`cubic_constants`.
+The JAX package's ``ops/kernels.py``, written with the same expression order
+so float32 results agree: Python-float constants are folded in double on the
+host and enter the tensor arithmetic as float32, as JAX folds them. The kind
+``"poly6"`` (``params.kernel_type`` of a PBF scene) swaps poly6 W and the
+spiky gradient in for the cubic spline; both are the 3D forms in every
+dimension, as in the JAX package. The CUDA pair bodies
+(``csrc/pair_bodies.cuh``) take the same folded constants from
+:func:`cubic_constants` and :func:`kind_constants`.
 """
 from __future__ import annotations
 
@@ -23,10 +27,8 @@ def _cubic_norm(h: float, dim: int) -> float:
     return k / h ** dim
 
 
-def _require_cubic(kind: str) -> None:
-    if kind != "cubic":
-        raise NotImplementedError(
-            f"{kind} kernel is not ported yet (ROADMAP Queue A.9b, PBF)")
+POLY6_FAC = 315.0 / 64.0 / math.pi
+SPIKY_FAC = -45.0 / math.pi
 
 
 def cubic_W(r: torch.Tensor, h: float, dim: int) -> torch.Tensor:
@@ -69,21 +71,71 @@ def cubic_w_gw_d2(d2: torch.Tensor, h: float, dim: int,
     return w, gw
 
 
+def cubic_grad_W(R: torch.Tensor, h: float, dim: int,
+                 dist: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the cubic spline for displacements R (..., dim): zero
+    inside |R| <= 1e-5 and outside q > 1."""
+    if dist is None:
+        dist = torch.linalg.vector_norm(R, dim=-1)
+    return grad_W_coef(dist, h, dim)[..., None] * R
+
+
+def poly6_W(r: torch.Tensor, h: float) -> torch.Tensor:
+    """PBF's poly6 kernel; zero at r == 0, like the reference."""
+    x = (h * h - r * r) / (h * h * h)
+    w = POLY6_FAC * x * x * x
+    return torch.where((r > 0) & (r < h), w, torch.zeros_like(w))
+
+
+def spiky_grad_coef(dist: torch.Tensor, h: float) -> torch.Tensor:
+    """Scalar c(|R|) of PBF's spiky gradient, gradW = c * R."""
+    safe = torch.clamp_min(dist, 1e-12)
+    x = (h - dist) / (h * h * h)
+    c = SPIKY_FAC * x * x / safe
+    return torch.where((dist > 0) & (dist < h), c, torch.zeros_like(c))
+
+
+def spiky_grad_W(R: torch.Tensor, h: float,
+                 dist: torch.Tensor | None = None) -> torch.Tensor:
+    """PBF's spiky gradient for displacements R (..., dim)."""
+    if dist is None:
+        dist = torch.linalg.vector_norm(R, dim=-1)
+    return spiky_grad_coef(dist, h)[..., None] * R
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("cubic", "poly6"):
+        raise ValueError(f"unknown kernel kind {kind!r}")
+
+
 def W(r: torch.Tensor, h: float, dim: int, kind: str = "cubic") -> torch.Tensor:
-    _require_cubic(kind)
-    return cubic_W(r, h, dim)
+    """Kernel dispatch: PBF swaps in poly6."""
+    _check_kind(kind)
+    return cubic_W(r, h, dim) if kind == "cubic" else poly6_W(r, h)
 
 
 def W0(h: float, dim: int, kind: str = "cubic") -> float:
-    """W(0) as a Python float (the self-density term)."""
-    _require_cubic(kind)
-    return _cubic_norm(h, dim)
+    """W(0) as a Python float (the self-density term); 0 under poly6."""
+    _check_kind(kind)
+    return _cubic_norm(h, dim) if kind == "cubic" else 0.0
+
+
+def grad_W(R: torch.Tensor, h: float, dim: int,
+           dist: torch.Tensor | None = None,
+           kind: str = "cubic") -> torch.Tensor:
+    """Gradient dispatch: PBF swaps in the spiky gradient."""
+    _check_kind(kind)
+    if kind == "cubic":
+        return cubic_grad_W(R, h, dim, dist)
+    return spiky_grad_W(R, h, dist)
 
 
 def grad_W_coef(dist: torch.Tensor, h: float, dim: int,
                 kind: str = "cubic") -> torch.Tensor:
     """Scalar c(|R|) with gradW = c * R."""
-    _require_cubic(kind)
+    _check_kind(kind)
+    if kind != "cubic":
+        return spiky_grad_coef(dist, h)
     k = 6.0 * _cubic_norm(h, dim)
     q = dist / h
     safe = torch.clamp_min(dist, 1e-12)
@@ -95,8 +147,32 @@ def grad_W_coef(dist: torch.Tensor, h: float, dim: int,
     return c / (safe * h)
 
 
+def w_d2(d2: torch.Tensor, h: float, dim: int, kind: str) -> torch.Tensor:
+    """W from the squared distance, as the JAX package's shared passes take
+    it (``common._w_d2``): the cubic d2-form, or poly6 at sqrt(d2)."""
+    if kind == "cubic":
+        return cubic_w_gw_d2(d2, h, dim, need_gw=False)[0]
+    return W(torch.sqrt(d2), h, dim, kind)
+
+
+def gw_d2(d2: torch.Tensor, h: float, dim: int, kind: str) -> torch.Tensor:
+    """gradW / R from the squared distance (``common._gw_coef``)."""
+    if kind == "cubic":
+        return cubic_w_gw_d2(d2, h, dim, need_w=False)[1]
+    return grad_W_coef(torch.sqrt(d2), h, dim, kind)
+
+
 def cubic_constants(h: float, dim: int) -> list:
     """The folded constants of :func:`cubic_w_gw_d2`, in the order the CUDA
     pair kernel reads them: h, k, 2k, 6k/h^2."""
     k = _cubic_norm(h, dim)
     return [h, k, k * 2.0, 6.0 * k / (h * h)]
+
+
+def kind_constants(h: float, dim: int) -> list:
+    """The folded constants of the distance forms :func:`W` and
+    :func:`grad_W_coef` take for either kind, in the order the CUDA pair
+    kernels read them (``PairArgs.kc``): h, h^2, h^3, the poly6 factor, the
+    spiky factor, then the cubic gradient's 6k."""
+    return [h, h * h, h * h * h, POLY6_FAC, SPIKY_FAC,
+            6.0 * _cubic_norm(h, dim)]

@@ -4,7 +4,8 @@ The JAX package's ``ops/neighbors.py`` binning and sort, minus the
 plane-padded and incremental layouts, which exist for the TPU pair engine's
 DMA windows. The flat id is x-major and z-fastest, ``(x*gy + y)*gz + z``, so
 the 3x3x3 stencil of a cell is 9 contiguous runs of sorted particles, one per
-(x, y) neighbour row; :func:`cell_table` gives the run bounds.
+(x, y) neighbour row; :func:`cell_table` gives the run bounds. In 2D the id
+is ``x*gy + y`` and the 3x3 stencil is 3 runs, one per neighbour column.
 
 Cell ids are computed once per sort and carried: particles that sit exactly
 on a cell edge can bin differently under another rounding of

@@ -11,15 +11,20 @@ a ``pairs.PairEnv`` to the cell-list kernel (``csrc/pair_pass.cu``). CUDA
 tensors launch the engine's kernel, CPU tensors evaluate the plain body with
 the engine's plain executor; the CUDA path of neither engine ever gives way to
 a plain version. Outputs are per row, zero on rows that do not produce; vector
-outputs come back as (N, 3).
+outputs come back as (N, dim).
 
-Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH):
-standard and implicit viscosity, cubic kernel, fluid, static walls and
-dynamic rigid bodies. A body that has outputs for dynamic rigid bodies (the
-wrenches, the same-object kernel sum) adds them under the flag
-:data:`RIGID`, after its other outputs; ``rigid_contact`` has one group of
-outputs per contact channel, so its outputs depend on
-``params.contact_channels``.
+Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH, PBF):
+standard and implicit viscosity, fluid, static walls and dynamic rigid
+bodies. A body that has outputs for dynamic rigid bodies (the wrenches, the
+same-object kernel sum) adds them under the flag :data:`RIGID`, after its
+other outputs; ``rigid_contact`` has one group of outputs per contact
+channel, so its outputs depend on ``params.contact_channels``.
+
+The bodies follow ``params.kernel_type`` (the cubic spline, or PBF's poly6
+W with the spiky gradient) and ``params.dim``. On the card the bodies of
+PBF's path (:data:`KIND_BODIES`) run in 2D and 3D under either kind; the
+others run in 3D under the cubic spline, the combinations the ported
+methods use (``sim._check_ported`` refuses the rest).
 """
 from __future__ import annotations
 
@@ -33,21 +38,22 @@ from ..core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
 from . import _build
 from . import kernels
 from . import neighbors
+from . import pairs
 from .pairs import PairEnv, SlabEnv, collect, run_plain, run_plain_slab
 
 
 def _w(d2, params):
-    return kernels.cubic_w_gw_d2(d2, params.support_radius, params.dim,
-                                 need_gw=False)[0]
+    return kernels.w_d2(d2, params.support_radius, params.dim,
+                        params.kernel_type)
 
 
 def _gw(d2, params):
-    return kernels.cubic_w_gw_d2(d2, params.support_radius, params.dim,
-                                 need_w=False)[1]
+    return kernels.gw_d2(d2, params.support_radius, params.dim,
+                         params.kernel_type)
 
 
-# flags: bit 0, divergence's neighbour count; bit 1, the outputs of dynamic
-# rigid bodies (wrenches, the same-object kernel sum)
+# flags: bit 0, the neighbour count (divergence, pbf_density); bit 1, the
+# outputs of dynamic rigid bodies (wrenches, the same-object kernel sum)
 COUNT = 1
 RIGID = 2
 
@@ -405,6 +411,73 @@ def rigid_contact_body(cx, params, flags=0):
     return out
 
 
+def _w_r(r, params):
+    return kernels.W(r, params.support_radius, params.dim, params.kernel_type)
+
+
+def _gw_r(r, params):
+    return kernels.grad_W_coef(r, params.support_radius, params.dim,
+                               params.kernel_type)
+
+
+def pbf_density_body(cx, params, flags=0):
+    """pbf.compute_density_moving :33: the kernel sum at the moved positions
+    (``pos``); ``flags & COUNT`` adds the neighbour count."""
+    _, d2, mask = cx.geometry()
+    W = _w_r(torch.sqrt(d2), params)
+    out = {"s": cx.sum(cx.slab("rest_volume") * W, mask)}
+    if flags & COUNT:
+        out["cnt"] = cx.sum(torch.ones_like(d2), mask)
+    return out
+
+
+def pbf_lambda_body(cx, params, flags=0):
+    """pbf.compute_lambda :50: ``sum_sq`` and ``vec`` over fluid and rigid
+    j, a rigid j weighted by row i's ``density`` (the iteration's)."""
+    R, d2, mask = cx.geometry()
+    gw = _gw_r(torch.sqrt(d2), params)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    w_f = cx.slab("mass") / params.density0
+    w_b = cx.slab("rest_volume") * cx.blk("density") / params.density0
+    w = (cx.where(fluid_j, w_f, 0.0) + cx.where(rigid_j, w_b, 0.0)) * gw
+    out = {"sum_sq": cx.sum(w * w * d2, fluid_j | rigid_j)}
+    for d in range(cx.dim):
+        out[f"vec{d}"] = cx.sum(w * R[d], fluid_j | rigid_j)
+    return out
+
+
+def pbf_wq(params) -> float:
+    """max(W(delta_q h), 1e-30), the s_corr denominator, in float32 (the
+    JAX body evaluates W(float32(delta_q h)) in float32)."""
+    w_q = kernels.W(torch.tensor(params.pbf_corr_delta_q * params.support_radius,
+                                 dtype=torch.float32),
+                    params.support_radius, params.dim, params.kernel_type)
+    return float(torch.clamp_min(w_q, 1e-30))
+
+
+def pbf_fix_body(cx, params, flags=0):
+    """pbf.fix_position :79 (before the 1 / rho0 factor): ``dx``, the sums of
+    (lam_i + lam_j + s_corr) m_j gradW over fluid j and (2 lam_i + s_corr)
+    V_j rho0 gradW over rigid j."""
+    R, d2, mask = cx.geometry()
+    dist = torch.sqrt(d2)
+    gw = _gw_r(dist, params)
+    ratio = _w_r(dist, params) / pbf_wq(params)
+    r2 = ratio * ratio                       # ratio ** 4, as lax.integer_pow
+    scorr = -params.pbf_corr_k * (r2 * r2)
+    mat_j = cx.slab("material")
+    fluid_j = mask & (mat_j == MATERIAL_FLUID)
+    rigid_j = mask & (mat_j == MATERIAL_RIGID)
+    lam_i = cx.blk("lam")
+    coef = (cx.where(fluid_j, (lam_i + cx.slab("lam") + scorr) *
+                     cx.slab("mass"), 0.0) +
+            cx.where(rigid_j, (2.0 * lam_i + scorr) *
+                     cx.slab("rest_volume") * params.density0, 0.0)) * gw
+    return {f"dx{d}": cx.sum(coef * R[d], mask) for d in range(cx.dim)}
+
+
 # one tag per dynamic body; with the static channel, 27 channels at the most
 # (CONTACT_CHANNELS_MAX in csrc/pair_bodies.cuh)
 _CHAN_TAGS = "abcdefghijklmnopqrstuvwxyz"
@@ -420,8 +493,16 @@ def contact_tags(params: SimParams) -> list:
     return list(_CHAN_TAGS[:n]) + ["st"]
 
 
+# output component -> its axis, for the components of vector outputs
+_AXIS: Dict[str, int] = {}
+
+
 def _vec(name):
-    return tuple(f"{name}{d}" for d in range(3))
+    """The components name0..name2 of a vector output; a 2D launch has the
+    first two."""
+    comps = tuple(f"{name}{d}" for d in range(3))
+    _AXIS.update({c: d for d, c in enumerate(comps)})
+    return comps
 
 
 _NONPRESSURE_FIELDS = ("pos", "vel", "material", "mass", "rest_volume",
@@ -471,7 +552,20 @@ BODIES = {
                    "inv_rho")),
     "visc_matvec": (17, visc_matvec_body, _vec("acc"),
                     ("pos", "x", "material", "mass", "density")),
+    # PBF (the moved positions go in as ``pos``; ``density`` is the
+    # iteration's, ``lam`` the iteration's lambda)
+    "pbf_density": (18, pbf_density_body, ("s", "cnt"),
+                    ("pos", "rest_volume")),
+    "pbf_lambda": (19, pbf_lambda_body, ("sum_sq",) + _vec("vec"),
+                   ("pos", "material", "mass", "rest_volume", "density")),
+    "pbf_fix": (20, pbf_fix_body, _vec("dx"),
+                ("pos", "material", "mass", "rest_volume", "lam")),
 }
+# the bodies of PBF's path, which the CUDA kernels run in 2D and 3D under
+# either kernel kind; the others run in 3D under the cubic spline
+KIND_BODIES = ("nonpressure", "rigid_volume", "pbf_density", "pbf_lambda",
+               "pbf_fix")
+KINDS = ("cubic", "poly6")
 # name -> (outputs a body adds under flags & RIGID, after its others; the
 #          fields they read besides the body's)
 RIGID_OUTPUTS = {
@@ -488,15 +582,26 @@ ENGINES = {"pair_pass": "sph_pair_pass", "pair_slab": "sph_pair_slab"}
 SLAB_MAX_BLOCK = 512
 
 
-def launch_key(engine: str, name: str, flags: int = 0) -> str:
-    """``<engine>/<body>``, with ``+rigid`` for a launch under :data:`RIGID`."""
-    return f"{engine}/{name}{'+rigid' if flags & RIGID else ''}"
+def launch_key(engine: str, name: str, flags: int = 0, kind: str = "cubic",
+               dim: int = 3) -> str:
+    """``<engine>/<body>``, with ``@poly6`` under PBF's kernels, ``@2d`` in
+    2D and ``+rigid`` for a launch under :data:`RIGID`."""
+    return (f"{engine}/{name}{'' if kind == 'cubic' else '@' + kind}"
+            f"{'@2d' if dim == 2 else ''}{'+rigid' if flags & RIGID else ''}")
 
 
-# kernel launches per engine, body and variant (launch_key)
-launches = {launch_key(engine, name, flags): 0 for engine in ENGINES
-            for name in BODIES for flags in (0, RIGID)
-            if not flags or name in RIGID_OUTPUTS}
+def params_key(engine: str, name: str, params: SimParams,
+               flags: int = 0) -> str:
+    """:func:`launch_key` of a launch under ``params``."""
+    return launch_key(engine, name, flags, params.kernel_type, params.dim)
+
+
+# kernel launches per engine, body, kind, dimension and variant (launch_key)
+launches = {launch_key(engine, name, flags, kind, dim): 0
+            for engine in ENGINES for name in BODIES for flags in (0, RIGID)
+            if not flags or name in RIGID_OUTPUTS
+            for kind in KINDS for dim in (3, 2)
+            if name in KIND_BODIES or (kind, dim) == ("cubic", 3)}
 
 
 def engine_of(env: PairEnv) -> str:
@@ -513,11 +618,11 @@ def out_names(name: str, params: SimParams, flags: int = 0) -> tuple:
     if name == "rigid_contact":
         return contact_outputs(params)
     names = BODIES[name][2]
-    if name == "divergence" and not flags & COUNT:
+    if name in ("divergence", "pbf_density") and not flags & COUNT:
         names = names[:1]
     if flags & RIGID:
         names = names + RIGID_OUTPUTS[name][0]
-    return names
+    return tuple(k for k in names if _AXIS.get(k, 0) < params.dim)
 
 
 def fields_of(name: str, flags: int = 0) -> tuple:
@@ -549,6 +654,10 @@ def body_constants(name: str, params: SimParams) -> list:
         c += [0.01 * params.support_radius ** 2, -d2c * params.viscosity,
               -d2c * params.viscosity_b, params.density0,
               d2c * params.viscosity_b * params.density0]
+    if name == "pbf_lambda":
+        c += [params.density0]
+    if name == "pbf_fix":
+        c += [params.density0, -params.pbf_corr_k, pbf_wq(params)]
     return c
 
 
@@ -559,13 +668,16 @@ _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "kappa", "k_rho", "pressure", "density", "p_rho2", "dpi",
                "inv_star2", "pred", "dii", "dij_pj", "x", "com", "chan",
                "starts", "lens", "out")
-# fields a body reads: (N, 3) vectors, i32 ids and flags, tables per object
+# fields a body reads: (N, dim) vectors, i32 ids and flags, tables per object
 # (read through a row's object id; name -> trailing shape); every other one
 # (N,) f32
 _VECTORS = ("pos", "vel", "pred", "dii", "dij_pj", "x")
 _INTS = ("material", "object_id", "is_dynamic", "chan")
 _TABLES = {"chan": (), "com": (3,)}
 N_CONST = 16
+N_KC = 6
+# PairArgs.kind
+KIND_IDS = {"cubic": 0, "poly6": 1}
 
 
 class PairArgs(ctypes.Structure):
@@ -574,7 +686,9 @@ class PairArgs(ctypes.Structure):
                 + [(k, ctypes.c_int)
                    for k in ("n", "gx", "gy", "gz", "flags", "block",
                              "n_chan")]
-                + [("dh2", ctypes.c_float), ("c", ctypes.c_float * N_CONST)])
+                + [("dh2", ctypes.c_float), ("c", ctypes.c_float * N_CONST),
+                   ("lam", ctypes.c_void_p), ("dim", ctypes.c_int),
+                   ("kind", ctypes.c_int), ("kc", ctypes.c_float * N_KC)])
 
 
 def _lib(engine: str):
@@ -596,8 +710,13 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     n = env.n
     dev = env.cells.device
     produce = env.produce if produce is None else produce
-    if params.dim != 3:
-        raise ValueError("the CUDA pair kernels are 3D only")
+    kind, dim = params.kernel_type, params.dim
+    if env.dim != dim:
+        raise ValueError(f"pair kernel {name}: a {env.dim}D environment for "
+                         f"{dim}D parameters")
+    if (kind, dim) != ("cubic", 3) and name not in KIND_BODIES:
+        raise ValueError(f"pair kernel {name}: runs in 3D with the cubic "
+                         f"kernel only, not {dim}D with {kind}")
     if engine == "pair_slab" and (not 0 < env.block <= SLAB_MAX_BLOCK
                                   or env.block % 32 or n % env.block):
         raise ValueError(
@@ -621,13 +740,14 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
         if key not in fields:
             raise ValueError(f"pair kernel {name}: missing field {key}")
         shape = ((params.max_objects,) + _TABLES[key] if key in _TABLES
-                 else (n, 3) if key in _VECTORS else (n,))
+                 else (n, dim) if key in _VECTORS else (n,))
         ptr(key, fields[key],
             torch.int32 if key in _INTS else torch.float32, shape)
     ptr("cells", env.cells, torch.int32, (n,))
     if engine == "pair_slab":
-        ptr("starts", env.starts, torch.int32, (n // env.block, 9))
-        ptr("lens", env.lens, torch.int32, (n // env.block, 9))
+        nseg = 9 if dim == 3 else 3
+        ptr("starts", env.starts, torch.int32, (n // env.block, nseg))
+        ptr("lens", env.lens, torch.int32, (n // env.block, nseg))
         args.block = env.block
     else:
         ptr("cell_start", env.cell_start, torch.int32, (params.num_cells + 1,))
@@ -635,7 +755,8 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     out = torch.empty((len(names), n), dtype=torch.float32, device=dev)
     ptr("out", out, torch.float32, (len(names), n))
     args.n = n
-    args.gx, args.gy, args.gz = env.grid
+    args.gx, args.gy, args.gz = pairs.grid3(env.grid)
+    args.dim, args.kind = dim, KIND_IDS[kind]
     args.flags = flags
     if name == "rigid_contact":
         args.n_chan = len(contact_tags(params))
@@ -643,12 +764,14 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     consts = body_constants(name, params)
     for k, v in enumerate(consts):
         args.c[k] = v
+    for k, v in enumerate(kernels.kind_constants(params.support_radius, dim)):
+        args.kc[k] = v
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib(engine)(body_id, ctypes.addressof(args), stream)
     if err != 0:
         raise RuntimeError(
             f"{engine} kernel {name}: launch failed, CUDA error {err}")
-    launches[launch_key(engine, name, flags)] += 1
+    launches[params_key(engine, name, params, flags)] += 1
     return {k: out[r] for r, k in enumerate(names)}
 
 
@@ -738,7 +861,7 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
         inv_star2=1.0 / (density * density),
         pred=pos + (rand(n, 3) - 0.5) * (0.2 * h),
         dii=(rand(n, 3) - 0.5) * 0.02, dij_pj=(rand(n, 3) - 0.5) * 20.0,
-        x=rand(n, 3) - 0.5)
+        x=rand(n, 3) - 0.5, lam=(rand(n) - 0.5) * 2e-3)
     cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
     perm = neighbors.sort_permutation(cells)
     fields = {k: v[perm].contiguous() for k, v in fields.items()}
@@ -746,6 +869,59 @@ def pile_up_case(pair_block: int = 256, seed: int = 0):
     fields["chan"][:3] = torch.tensor([0, 1, 2], dtype=torch.int32)
     fields["com"] = torch.zeros(params.max_objects, 3)
     fields["com"][:2] = torch.tensor([[h, 2 * h, 1.5 * h], [2 * h, h, 2 * h]])
+    return (params, cells[perm].contiguous(),
+            fields["material"] == MATERIAL_FLUID, fields)
+
+
+def pile_up_case_2d(pair_block: int = 256, seed: int = 0):
+    """:func:`pile_up_case` in 2D under PBF's kernels (poly6): a 36x36
+    lattice of spacing h/12 fills the 3x3 cells at the grid's origin corner,
+    so its inner rows have about 450 neighbours and a row's run of
+    candidates (three cells of 144) crosses several of the tiles either
+    kernel stages; a few particles sit in the opposite corner cell, in an
+    edge cell and alone. A fifth of the rows are rigid (object 0 dynamic,
+    object 1 static), the rest fluid; the tail up to ``n_pad`` is
+    ``MATERIAL_NONE`` rows with the sentinel cell id. Returns ``(params,
+    cells, produce, fields)`` on the CPU, with the fields of the bodies on
+    PBF's path."""
+    h = 1.0
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, dtype=torch.float32)
+
+    params = make_params(36 ** 2 + 40, dim=2, particle_radius=h / 24,
+                         support_radius=h, domain_end=(6 * h, 7 * h),
+                         pair_block=pair_block, kernel_type="poly6",
+                         has_dynamic_rigid=True)
+    gx, gy = params.grid_num
+    k = torch.arange(36, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(k, k, indexing="ij"), -1)
+    lattice = (lattice.reshape(-1, 2) + 0.5) * (h / 12)
+    lattice = lattice + (rand(lattice.shape) - 0.5) * (0.1 * h / 12)
+    far = torch.tensor([gx - 1.0, gy - 1.0]) * h
+    edge = torch.tensor([gx - 1.0, 3.0]) * h
+    lone = torch.tensor([[3.5, 4.5], [1.5, 5.5]]) * h
+    pos = torch.cat([lattice, far + rand(20, 2) * h, edge + rand(18, 2) * h,
+                     lone])
+    n_real = pos.shape[0]
+    n = params.n_pad
+    pos = torch.cat([pos, torch.zeros(n - n_real, 2)])
+    material = torch.where(rand(n) < 0.2, MATERIAL_RIGID, MATERIAL_FLUID)
+    material[n_real:] = MATERIAL_NONE
+    material = material.to(torch.int32)
+    density = 900.0 + 200.0 * rand(n)
+    obj = (rand(n) * 2).to(torch.int32)
+    fields = {"pos": pos, "vel": rand(n, 2) - 0.5, "material": material,
+              "mass": params.v0 * params.density0 * (0.9 + 0.2 * rand(n)),
+              "rest_volume": params.v0 * (0.9 + 0.2 * rand(n)),
+              "density": density, "inv_rho": 1.0 / density,
+              "object_id": obj, "lam": (rand(n) - 0.5) * 2e-3,
+              "is_dynamic": ((material == MATERIAL_FLUID) | (obj < 1)).to(
+                  torch.int32)}
+    cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
+    perm = neighbors.sort_permutation(cells)
+    fields = {k: v[perm].contiguous() for k, v in fields.items()}
     return (params, cells[perm].contiguous(),
             fields["material"] == MATERIAL_FLUID, fields)
 

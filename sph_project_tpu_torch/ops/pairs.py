@@ -11,9 +11,14 @@ consecutive sorted rows, and segment ``s = (dx, dy)`` of a block is one index
 range, the union over the block's rows of the 3 z-cells around each row's
 cell in the (x+dx, y+dy) row of cells. A block that spans several (x, y) rows
 has overlapping windows, so a candidate ``j`` of segment ``s`` counts for row
-``i`` only if ``rows[j] == rows[i] + dx*gy + dy`` (the plain executor's test;
-the CUDA kernel finds the same candidates as the piece of the window whose
-cell ids lie in the row's three z-cells of that row of cells).
+``i`` only if it lies in the row's piece of the window: ``rows[j] == rows[i]
++ dx*gy + dy`` and its cell one of the three z-cells around the row's (the
+plain executor's test; the CUDA kernel finds the piece by binary search over
+the window's cell ids). Both engines thus take a row's candidates from the
+3^dim cells around its cell at the last sort, also when the pair passes run
+on positions moved since (PBF's iterations, a dynamic body's volumes): the
+step-start grid. The JAX package's slab executor keeps any row-matched
+candidate of the window instead, a superset on moved positions.
 
 Not carried over from the JAX slab engine: the pre-gathered slabs
 (``pos_slab``, ``jidx``, ``valid``, ``row_slab``, ``slab_pack``,
@@ -22,6 +27,12 @@ outlier blocks with ``pair_slab_big``. They exist because XLA shapes are
 static and TPU gathers are slow. Here a window is read straight from the
 sorted fields and walked to its true length, so nothing is cut, the overflow
 count is 0 by construction and one pass covers the outlier blocks too.
+
+In 2D the flat id is ``x*gy + y``: a row of cells is one x, its cells run
+along y, and the stencil is 3 segments ``dx`` in place of 9. Both engines
+treat a 2D grid ``(gx, gy)`` as the 3D grid ``(gx, 1, gy)``
+(:func:`grid3`), whose flat ids are the same, with the segments of
+:func:`segments`.
 
 :func:`run_plain` (cell-list) and :func:`run_plain_slab` (slab-window)
 evaluate a pair body written against :class:`Cx` (the component API of the
@@ -50,19 +61,25 @@ class PairEnv:
     cells: torch.Tensor        # (N,) i32 sorted flat cell ids (sentinel tail)
     cell_start: torch.Tensor   # (num_cells + 1,) i32
     produce: torch.Tensor      # (N,) bool rows whose pair sums are read
-    grid: tuple                # (gx, gy, gz)
+    grid: tuple                # (gx, gy, gz), or (gx, gy) in 2D
     dh2: float                 # support radius squared (float32 on use)
 
     @property
     def n(self) -> int:
         return self.cells.shape[0]
 
+    @property
+    def dim(self) -> int:
+        return len(self.grid)
+
 
 @dataclasses.dataclass
 class SlabEnv(PairEnv):
-    starts: torch.Tensor       # (NB, 9) i32 window start per block and segment
+    starts: torch.Tensor       # (NB, 9) i32 window start per block and
+    #                            segment ((NB, 3) in 2D)
     lens: torch.Tensor         # (NB, 9) i32 true window length
     rows: torch.Tensor         # (N,) i32 flat (x, y) row id, cells // gz
+    #                            (x in 2D: cells // gy)
     block: int                 # rows per block (params.pair_block)
 
     @property
@@ -72,15 +89,24 @@ class SlabEnv(PairEnv):
 
 # (dx, dy) of segment s = 3 * (dx + 1) + (dy + 1), the order both engines walk
 SEGMENTS = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+# in 2D, under grid3: segment s = dx + 1
+SEGMENTS_2D = tuple((dx, 0) for dx in (-1, 0, 1))
+
+
+def segments(dim: int) -> tuple:
+    return SEGMENTS if dim == 3 else SEGMENTS_2D
+
+
+def grid3(grid: tuple) -> tuple:
+    """The 3D grid whose flat cell ids are ``grid``'s: itself, or
+    ``(gx, 1, gy)`` for a 2D ``(gx, gy)``."""
+    return tuple(grid) if len(grid) == 3 else (grid[0], 1, grid[1])
 
 
 def make_pair_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
                   params: SimParams) -> PairEnv:
     """The cell-list environment over one sorted layout."""
     from .neighbors import cell_table
-    if params.dim != 3:
-        raise NotImplementedError("2D scenes are not ported yet "
-                                  "(ROADMAP Queue A.9b, PBF 2D)")
     return PairEnv(cells=cells_sorted.contiguous(),
                    cell_start=cell_table(cells_sorted, params.num_cells),
                    produce=produce.contiguous(), grid=tuple(params.grid_num),
@@ -177,16 +203,17 @@ class Cx:
 
 
 def _cell_xy(cells: torch.Tensor, grid: tuple):
-    gx, gy, gz = grid
+    gx, gy, gz = grid3(grid)
     rest = cells // gz
     return rest // gy, rest % gy, cells % gz
 
 
 def _ranges(env: PairEnv, rows: torch.Tensor):
-    """(lo, hi, ok), each (R, 9): the index range [lo, hi) of the 3 z-cells
-    around each row's cell in each of the 9 (x+dx, y+dy) rows of cells, and
-    whether that row of cells exists (never for a row with the sentinel id)."""
-    gx, gy, gz = env.grid
+    """(lo, hi, ok), each (R, 9) ((R, 3) in 2D): the index range [lo, hi) of
+    the 3 z-cells around each row's cell in each of the 9 (x+dx, y+dy) rows
+    of cells, and whether that row of cells exists (never for a row with the
+    sentinel id)."""
+    gx, gy, gz = grid3(env.grid)
     c = env.cells[rows].long()
     x, y, z = _cell_xy(c, env.grid)
     live = c < gx * gy * gz
@@ -194,7 +221,7 @@ def _ranges(env: PairEnv, rows: torch.Tensor):
     zhi = torch.clamp_max(z + 1, gz - 1)
     start = env.cell_start.long()
     los, his, oks = [], [], []
-    for dx, dy in SEGMENTS:
+    for dx, dy in segments(env.dim):
         xx, yy = x + dx, y + dy
         oks.append(live & (xx >= 0) & (xx < gx) & (yy >= 0) & (yy < gy))
         row = (xx.clamp(0, gx - 1) * gy + yy.clamp(0, gy - 1)) * gz
@@ -204,7 +231,8 @@ def _ranges(env: PairEnv, rows: torch.Tensor):
 
 
 def candidate_ranges(env: PairEnv, rows: torch.Tensor):
-    """(lo, length) of the 9 contiguous candidate runs of each row, (R, 9)."""
+    """(lo, length) of the 9 (2D: 3) contiguous candidate runs of each
+    row, (R, 9) ((R, 3))."""
     lo, hi, ok = _ranges(env, rows)
     return lo, torch.where(ok, hi - lo, torch.zeros_like(lo))
 
@@ -227,17 +255,18 @@ def make_slab_env(cells_sorted: torch.Tensor, produce: torch.Tensor,
         **{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
         starts=starts.to(torch.int32).contiguous(),
         lens=lens.to(torch.int32).contiguous(),
-        rows=(base.cells // params.grid_num[2]).contiguous(), block=B)
+        rows=(base.cells // params.grid_num[-1]).contiguous(), block=B)
 
 
 def window_pieces(env: SlabEnv, rows: torch.Tensor):
-    """(lo, length), each (R, 9): the piece of its block's window that each
+    """(lo, length), each (R, 9) ((R, 3) in 2D): the piece of its block's
+    window that each
     row tests under the slab-window kernel (``csrc/pair_slab.cu``), found as
     the kernel finds it, from the window table and the sorted cell ids: the
     candidates of the window whose cell id lies in the three z-cells around
     the row's in the segment's row of cells. Empty where that row of cells
     does not exist."""
-    gx, gy, gz = env.grid
+    gx, gy, gz = grid3(env.grid)
     cells = env.cells.long()
     c = cells[rows]
     x, y, z = _cell_xy(c, env.grid)
@@ -246,10 +275,11 @@ def window_pieces(env: SlabEnv, rows: torch.Tensor):
     zhi = torch.clamp_max(z + 1, gz - 1)
     ws = env.starts.long()[rows // env.block]
     we = ws + env.lens.long()[rows // env.block]
+    segs = segments(env.dim)
     want = torch.stack([((x + dx) * gy + (y + dy)) * gz
-                        for dx, dy in SEGMENTS], 1)
+                        for dx, dy in segs], 1)
     ok = torch.stack([live & (x + dx >= 0) & (x + dx < gx) & (y + dy >= 0)
-                      & (y + dy < gy) for dx, dy in SEGMENTS], 1)
+                      & (y + dy < gy) for dx, dy in segs], 1)
     # the ids are sorted over all rows, so a search inside [ws, we) is the
     # search over all of them, clamped to the window
     lo = torch.searchsorted(cells, (want + zlo[:, None]).contiguous())
@@ -260,11 +290,12 @@ def window_pieces(env: SlabEnv, rows: torch.Tensor):
 
 
 def _expand_runs(lo: torch.Tensor, ln: torch.Tensor, m: int):
-    """The indices of each row's 9 runs laid side by side, padded to ``m``
-    columns: (index, segment, is a real candidate), each (R, m)."""
+    """The indices of each row's 9 (2D: 3) runs laid side by side, padded to
+    ``m`` columns: (index, segment, is a real candidate), each (R, m)."""
     cum = torch.cumsum(ln, 1)
     k = torch.arange(max(m, 1), device=lo.device).expand(lo.shape[0], -1)
-    seg = torch.searchsorted(cum, k.contiguous(), right=True).clamp_max(8)
+    seg = torch.searchsorted(cum, k.contiguous(),
+                             right=True).clamp_max(ln.shape[1] - 1)
     first = (cum - ln).gather(1, seg)
     cand = lo.gather(1, seg) + (k - first)
     return cand, seg, k < cum[:, -1:]
@@ -279,7 +310,8 @@ def run_plain(body: Callable, env: PairEnv, fields: Dict[str, torch.Tensor],
               out_names, produce: torch.Tensor | None = None
               ) -> Dict[str, torch.Tensor]:
     """Evaluate ``body(cx) -> {name: (R,) sums}`` for every produce row over
-    the candidates of its 9 cell-row runs; the other rows get zeros. Returns
+    the candidates of its 9 (2D: 3) cell-row runs; the other rows get
+    zeros. Returns
     one (N,) tensor per name in ``out_names``."""
     produce = env.produce if produce is None else produce
     comps = split(fields)
@@ -297,7 +329,7 @@ def run_plain(body: Callable, env: PairEnv, fields: Dict[str, torch.Tensor],
         rows = rows_all[start:stop]
         cand, _, valid = _expand_runs(lo_all[start:stop], len_all[start:stop], m)
         cand = torch.where(valid, cand, rows[:, None])
-        cx = Cx(comps, rows[:, None], cand, valid, env.dh2, 3)
+        cx = Cx(comps, rows[:, None], cand, valid, env.dh2, env.dim)
         res = body(cx)
         for name in out_names:
             out[name][rows] = res[name].to(torch.float32)
@@ -309,14 +341,16 @@ def run_plain_slab(body: Callable, env: SlabEnv,
                    produce: torch.Tensor | None = None
                    ) -> Dict[str, torch.Tensor]:
     """:func:`run_plain` for the slab-window engine: every produce row takes,
-    of the candidates of its block's 9 windows, those of the row of cells the
-    segment stands for. Blocks go in chunks of ``PLAIN_CHUNK_ELEMS`` rows x
-    candidates; one block wider than that goes alone, in groups of rows."""
+    of the candidates of its block's 9 (2D: 3) windows, those in the three
+    z-cells around its own in the row of cells the segment stands for: its
+    piece of the window, as the kernel finds it. Blocks go in chunks of
+    ``PLAIN_CHUNK_ELEMS`` rows x candidates; one block wider than that goes
+    alone, in groups of rows."""
     produce = env.produce if produce is None else produce
     comps = split(fields)
     out = _zeros_out(env, out_names)
     B, dev = env.block, env.cells.device
-    gx, gy, _ = env.grid
+    gx, gy, gz = grid3(env.grid)
     blocks_all = torch.nonzero(produce.view(-1, B).any(1)).flatten()
     widths = env.lens.sum(1)[blocks_all].tolist()
     k = 0
@@ -331,21 +365,25 @@ def run_plain_slab(body: Callable, env: SlabEnv,
         cand, seg, valid = _expand_runs(env.starts[blocks].long(),
                                         env.lens[blocks].long(), m)
         cand = torch.where(valid, cand, torch.zeros_like(cand))
-        cand_row = env.rows[cand][:, None, :]
+        cand_cell = env.cells[cand][:, None, :]
         group = B if len(blocks) > 1 else max(1, min(B, PLAIN_CHUNK_ELEMS // m))
         for r0 in range(0, B, group):
             rows = blocks[:, None] * B + torch.arange(
                 r0, min(r0 + group, B), device=dev)              # (C, G)
             row_id = env.rows[rows].long()
             x, y = row_id // gy, row_id % gy
+            z = env.cells[rows].long() % gz
             want = torch.stack(
                 [torch.where((x + dx >= 0) & (x + dx < gx) & (y + dy >= 0)
                              & (y + dy < gy), row_id + (dx * gy + dy),
                              torch.full_like(row_id, -1))
-                 for dx, dy in SEGMENTS], -1)
+                 for dx, dy in segments(env.dim)], -1)
             want = want.gather(2, seg[:, None, :].expand(-1, rows.shape[1], -1))
+            lo = want * gz + torch.clamp_min(z - 1, 0)[..., None]
+            hi = want * gz + torch.clamp_max(z + 1, gz - 1)[..., None]
+            piece = (want >= 0) & (cand_cell >= lo) & (cand_cell <= hi)
             cx = Cx(comps, rows[:, :, None], cand[:, None, :],
-                    valid[:, None, :], env.dh2, 3, row_match=cand_row == want)
+                    valid[:, None, :], env.dh2, env.dim, row_match=piece)
             res = body(cx)
             for name in out_names:
                 out[name][rows] = torch.where(

@@ -1,9 +1,10 @@
 """Simulation orchestration: the per-step sort, prepare, the step, the driver.
 
-The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH
-and IISPH, with standard or implicit viscosity, over fluid, static walls,
-dynamic rigid bodies with the integrator backend, deferred entries and
-emitters (line numbers name its functions). PyTorch runs eagerly,
+The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH,
+IISPH and PBF, with standard or implicit viscosity (PBF: standard), over
+fluid, static walls, dynamic rigid bodies with the integrator backend,
+deferred entries and emitters, in 3D, and PBF also in 2D (line numbers name
+its functions). PyTorch runs eagerly,
 so there is no jit and no scan: ``step`` runs one step and ``run`` loops over
 it. Every tensor of the state lives on the simulation's device, and the
 device defaults to ``"cuda"``; on a host without CUDA, ask for
@@ -26,16 +27,24 @@ from .solvers import common
 
 
 # the ported simulation methods, each the name of its module in .solvers
-METHODS = ("dfsph", "wcsph", "pcisph", "iisph")
+METHODS = ("dfsph", "wcsph", "pcisph", "iisph", "pbf")
 
 
 def _check_ported(params: SimParams) -> None:
-    if params.simulation_method not in METHODS:
-        raise NotImplementedError(
-            f"simulation method {params.simulation_method} is not ported yet "
-            "(ROADMAP Queue A.9b)")
+    method = params.simulation_method
+    if method not in METHODS:
+        raise NotImplementedError(f"simulation method {method} is unknown")
     if params.viscosity_method not in ("standard", "implicit"):
         raise NotImplementedError(params.viscosity_method)
+    if method != "pbf" and (params.dim != 3 or params.kernel_type != "cubic"):
+        raise NotImplementedError(
+            f"{method} in {params.dim}D with the {params.kernel_type} kernel "
+            "is not ported yet: 2D and poly6 run under PBF only (ROADMAP "
+            "Queue A.9c)")
+    if method == "pbf" and params.viscosity_method == "implicit":
+        raise NotImplementedError(
+            "PBF with implicit viscosity is not ported yet (ROADMAP Queue "
+            "A.9c)")
     if params.has_dynamic_rigid and params.rigid_solver != "integrator":
         raise NotImplementedError(
             f"rigid_solver={params.rigid_solver!r} is not ported yet "

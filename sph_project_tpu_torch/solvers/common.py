@@ -1,9 +1,10 @@
 """Shared SPH operators of the ported steps, over the pair kernels.
 
 The subset of the JAX package's ``solvers/common.py`` that DFSPH, WCSPH,
-PCISPH and IISPH steps with standard or implicit viscosity over fluid,
+PCISPH, IISPH and PBF steps with standard or implicit viscosity over fluid,
 static walls, dynamic rigid bodies and emitters run (line numbers name the
-JAX original). Per-particle
+JAX original). The kernel kind (``params.kernel_type``) reaches every pass
+through the pair bodies and :mod:`ops.kernels`; PBF's passes run in 2D too. Per-particle
 arithmetic is plain tensor code; every neighbour sum goes through
 ``ops.pair_kernels.run``.
 
@@ -45,11 +46,18 @@ def rigid_dyn(p: ParticleState) -> torch.Tensor:
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Cross product of 3-vectors in the last axis (:75, 3D only, as the
-    port's pair engines)."""
+    """Cross product of 3-vectors in the last axis."""
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def pair_cross(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`cross` in 3D; in 2D the scalar torque a0 b1 - a1 b0, (..., 1)
+    (:75)."""
+    if dim == 3:
+        return cross(a, b)
+    return (a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0])[..., None]
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -110,7 +118,7 @@ def wrench_of(fpp: torch.Tensor, p: ParticleState, rigid: RigidState,
     """(force, torque) per object from per-rigid-row force sums whose arm is
     the row's offset from its body's com (:440-445)."""
     com_i = rigid.com[object_index(p, params)]
-    torque_pp = cross(p.pos - com_i, fpp)
+    torque_pp = pair_cross(p.pos - com_i, fpp, params.dim)
     return reduce_wrench(fpp, torque_pp, p, params)
 
 
@@ -156,7 +164,12 @@ def renew_rigid_particle_state(p: ParticleState, rigid: RigidState,
     sel = rigid_dyn(p) & (t["dyn"] > 0) & (p.object_id >= 0)
     rotq = matvec(t["rot"], p.rigid_rest_pos - t["com0"])
     new_pos = t["com"] + rotq
-    new_vel = t["vel"] + cross(t["omega"], rotq)
+    if params.dim == 3:
+        spin = cross(t["omega"], rotq)
+    else:
+        w = t["omega"][:, 0]
+        spin = torch.stack([-w * rotq[:, 1], w * rotq[:, 0]], -1)
+    new_vel = t["vel"] + spin
     return p.replace(pos=torch.where(sel[:, None], new_pos, p.pos),
                      vel=torch.where(sel[:, None], new_vel, p.vel))
 

@@ -133,3 +133,58 @@ def test_cli_device_cuda_raises_without_cuda(tmp_path):
                       *extra])
     with pytest.raises(SystemExit):
         cli.main(["--scene_file", SMOKE, "--device", "tpu"])
+
+
+def _files(root):
+    out = {}
+    for rel in _layout(root):
+        with open(os.path.join(root, rel), "rb") as f:
+            out[rel] = f.read()
+    return out
+
+
+def test_cli_pbf_2d_scene_matches_jax_driver(tmp_path, monkeypatch):
+    """pbf_2d.json (a frame every step, the 2D view) through both drivers, 4
+    steps: the same JSONL keys in the same order, equal fluid counts and
+    iteration counts, densities within float32 rounding; the same frames,
+    byte for byte (the trajectories are within 1e-5 for the first 5 steps:
+    tests/test_torch_pbf_2d.py). The JAX package's PLY writer takes 3D
+    points only, so the scene exports no PLY in either package."""
+    common = ["--scene_file", os.path.join(SCENES, "pbf_2d.json"), "--steps",
+              "4", "--quiet"]
+    _jax_cli(monkeypatch, *common, "--output_dir", str(tmp_path / "jax"),
+             "--log_json", str(tmp_path / "jax.jsonl"))
+    cli.main([*common, "--device", "cpu", "--output_dir",
+              str(tmp_path / "port"), "--log_json",
+              str(tmp_path / "port.jsonl")])
+    a, b = _log(tmp_path / "jax.jsonl"), _log(tmp_path / "port.jsonl")
+    assert len(a) == len(b) == 4
+    for ea, eb in zip(a, b):
+        assert list(ea) == list(eb)
+        for k in ("step", "fluid_num", "solver_iters"):
+            assert ea[k] == eb[k], k
+        for k in ("density_avg", "density_max", "vel_max"):
+            assert eb[k] == pytest.approx(ea[k], rel=1e-5, abs=1e-6), k
+    fa, fb = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert sorted(fa) == sorted(fb)
+    frames = sorted({k.split(os.sep)[0] for k in fa})
+    assert frames == [f"{c:06d}" for c in range(4)]
+    assert sorted(fa) == [os.path.join(f, "raw_view.png") for f in frames]
+    for k in fa:
+        assert fa[k] == fb[k], k
+
+
+def test_cli_pbf_2d_resume_is_bit_equal(tmp_path):
+    """The 2D PBF scene: 6 steps straight against 3, a checkpoint, and a
+    resumed run to 6, every state array bit for bit."""
+    common = ["--scene_file", os.path.join(SCENES, "pbf_2d.json"), "--device",
+              "cpu", "--quiet", "--no-export"]
+    straight = cli.main([*common, "--steps", "6"])
+    cli.main([*common, "--steps", "3", "--checkpoint_interval", "2",
+              "--output_dir", str(tmp_path / "half")])
+    resumed = cli.main([*common, "--steps", "6", "--resume",
+                        str(tmp_path / "half" / "ckpt")])
+    assert int(resumed.state.step_count) == 6
+    sa, sb = bridge.walk(straight.state), bridge.walk(resumed.state)
+    for (path, x), (_, y) in zip(sa, sb):
+        assert x.dtype == y.dtype and torch.equal(x, y), path

@@ -152,14 +152,16 @@ def _nn(a, b):
 # (case, method, steps before the save). The smoke scene as it is (WCSPH, a
 # free block); the domain box under DFSPH, PCISPH and IISPH after its block
 # hits the floor (PCISPH and IISPH iterate there; DFSPH's correctors stay at
-# 1 and 1 on this scene, as in the JAX package)
+# 1 and 1 on this scene, as in the JAX package); pbf_2d.json, a 2D state
+# (PBF)
 CASES = [("smoke", "wcsph", 3), ("box", "dfsph", 18), ("box", "pcisph", 12),
-         ("box", "iisph", 12)]
+         ("box", "iisph", 12), ("pbf_2d", "pbf", 3)]
 
 
 def _config(case, method):
-    if case == "smoke":
-        with open(SMOKE) as f:
+    if case in ("smoke", "pbf_2d"):
+        with open(SMOKE if case == "smoke"
+                  else os.path.join(SCENES, "pbf_2d.json")) as f:
             return json.load(f)
     return box_config(method)
 
@@ -265,6 +267,30 @@ def test_frame_exporter_byte_equal(tmp_path, monkeypatch):
         os.path.join("000002", n) for n in (
             "particle_object_0.ply", "mesh_object_1.obj", "raw_view.png",
             "state.npz"))
+    for k in a:
+        assert a[k] == b[k], k
+
+
+def test_frame_exporter_byte_equal_2d(tmp_path, monkeypatch):
+    """pbf_2d.json's JAX state after two steps, carried into the port: the
+    2D view and the npz state byte for byte (the JAX package's PLY writer
+    takes 3D points only)."""
+    with open(os.path.join(SCENES, "pbf_2d.json")) as f:
+        cfg = json.load(f)
+    js, jst, ts, _ = load_both(cfg)
+    j = jsim.Simulation(js, jst)
+    for _ in range(2):
+        j.step()
+    state = bridge.state_from_numpy(flatten_jax_state(j.state), ts.params)
+    assert state.particles.pos.shape[1] == 2
+    monkeypatch.setattr("time.time", lambda: 1.7e9)
+    for pkg, sc, st in (("jax", js, j.state), ("port", ts, state)):
+        mod = jexp if pkg == "jax" else texp
+        mod.FrameExporter(sc, str(tmp_path / pkg), export_ply=False,
+                          export_frame=True, export_npz=True).dump(st, 2)
+    a, b = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert sorted(a) == sorted(b) == sorted(
+        os.path.join("000002", n) for n in ("raw_view.png", "state.npz"))
     for k in a:
         assert a[k] == b[k], k
 

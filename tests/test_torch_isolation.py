@@ -104,11 +104,13 @@ def test_port_imports_no_jax_rigid(tmp_path):
 
 
 # (the ids name the features the cases probed when they were written:
-# implicit viscosity runs since A.10, and a 2D scene with it still raises)
+# implicit viscosity runs since A.10 and PBF since A.9b; PBF with implicit
+# viscosity and a 2D scene under another method still raise)
 @pytest.mark.parametrize("scene,overrides,item", [
-    ("smoke_test.json", dict(simulation_method="pbf"), "A.9b"),
+    ("smoke_test.json", dict(simulation_method="pbf",
+                             viscosity_method="implicit"), "A.9c"),
     ("pbf_2d.json", dict(simulation_method="dfsph",
-                         viscosity_method="implicit"), "A.9b"),
+                         viscosity_method="implicit"), "A.9c"),
     ("dragon_bath_wcsph.json", dict(rigid_solver="shape_matching"), "A.11b"),
 ], ids=["pbf", "implicit_viscosity", "dynamic_rigid"])
 def test_unported_features_raise(scene, overrides, item):

@@ -6,7 +6,8 @@ The port runs on the CPU through the plain versions of its kernels (the
 cell-list engine, the scenes' ``auto``). Trajectories are compared after
 nearest-neighbour matching, since the port re-sorts its rows every step;
 iteration counts must track the oracle's within 2 every step. PBF
-(``test_parity.py:130``) waits for its port (ROADMAP A.9b).
+(``test_parity.py:130``): the reference's own 2D PBF configuration, its
+trajectory after 20 steps and statistics after 50.
 """
 import numpy as np
 import pytest
@@ -117,3 +118,41 @@ def test_dfsph_matches_oracle_with_iteration_counts():
     sim, orc = _dfsph(40)
     np.testing.assert_allclose(engine_density(sim).mean(),
                                orc.density.mean(), rtol=2e-3)
+
+
+def test_pbf_oracle_parity():
+    """tests/test_parity.py test_pbf_oracle_parity for the port: the
+    reference's 2D PBF constants (h 1.12, spacing 0.88, dt 0.05, zero
+    viscosity, s_corr on) and that test's bounds: every particle within 2e-3
+    of the oracle's after 20 steps (measured 7e-4 by the JAX package's test)
+    and the mean density within 2e-3; after 50, finite in both."""
+    from test_torch_pbf_2d import parity_config
+    scene, state = load_scene(config=SimConfig(config=parity_config()),
+                              pair_block=64)
+    sim = simlib.Simulation(scene, state, device="cpu")
+    params = scene.params
+    p = sim.state.particles
+    act = p.material.numpy() == 1
+    orc = Oracle(p.pos.numpy()[act], p.vel.numpy()[act],
+                 h=params.support_radius, dt=params.dt,
+                 rho0=params.density0, v0=params.v0, gravity=params.gravity,
+                 viscosity=params.viscosity,
+                 surface_tension=params.surface_tension,
+                 domain=(params.domain_start, params.domain_end),
+                 padding=params.padding, kernel=params.kernel_type,
+                 diameter=params.particle_diameter)
+    assert orc.kernel == "poly6"
+    for _ in range(20):
+        sim.step()
+        orc.step_pbf(iters=params.pbf_iters, corr_k=params.pbf_corr_k,
+                     corr_dq=params.pbf_corr_delta_q)
+    d = nn_dist(sim, orc)
+    assert d.max() < 2e-3, f"trajectory drift {d.max():.2e}"
+    np.testing.assert_allclose(engine_density(sim).mean(),
+                               orc.density.mean(), rtol=2e-3)
+    for _ in range(30):
+        sim.step()
+        orc.step_pbf(iters=params.pbf_iters, corr_k=params.pbf_corr_k,
+                     corr_dq=params.pbf_corr_delta_q)
+    assert np.isfinite(sim.state.particles.pos.numpy()).all()
+    assert np.isfinite(orc.pos).all()

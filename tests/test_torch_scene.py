@@ -122,9 +122,11 @@ _VISCOUS_SCENES = ("high_viscosity_implicit.json",
                    "buckling_emitter_small.json", "coiling_emitter_small.json")
 
 
+# pbf_2d (2D, poly6) and pbf_3d: the PBF scenes
 @pytest.mark.parametrize("name", ["smoke_test.json", "dam_break_demo.json",
                                   "high_viscosity_bunny.json", "box",
-                                  *_DYNAMIC_SCENES, *_VISCOUS_SCENES])
+                                  *_DYNAMIC_SCENES, *_VISCOUS_SCENES,
+                                  "pbf_2d.json", "pbf_3d.json"])
 def test_load_scene_bit_equal(name, tmp_path):
     if name == "box":
         config = box_config()
@@ -200,12 +202,12 @@ def test_bridge_rejects_wrong_size():
 
 
 # dynamic rigid bodies load, and under the shape-matching solver (A.11b) they
-# raise; emitters load and step, and under PBF (A.9b) the scene raises when
-# its step is built (the ids name the queue items the scenes waited on when
-# these cases were written)
+# raise; emitters load and step, and under PBF with their implicit viscosity
+# (A.9c) the scene raises when its step is built (the ids name the queue
+# items the scenes waited on when these cases were written)
 @pytest.mark.parametrize("name,item", [
     pytest.param("coupling_dfsph.json", "A.11b", id="coupling_dfsph.json-A.11"),
-    pytest.param("buckling_emitter_small.json", "A.9b",
+    pytest.param("buckling_emitter_small.json", "A.9c",
                  id="buckling_emitter_small.json-A.12")])
 def test_unported_scenes_raise(name, item):
     overrides = {"coupling_dfsph.json": dict(rigid_solver="shape_matching"),

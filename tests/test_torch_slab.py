@@ -126,7 +126,8 @@ def _fields(s):
             "is_dynamic": p.is_dynamic,
             "com": seeded(rng.uniform(0.0, 0.3, (s.params.max_objects, 3))),
             "chan": channel_table(s.trigid, s.params),
-            "x": seeded(rng.normal(0.0, 0.5, (n, 3)))}
+            "x": seeded(rng.normal(0.0, 0.5, (n, 3))),
+            "lam": seeded(rng.normal(0.0, 1e-3, n))}
 
 
 @pytest.mark.parametrize("name", list(pair_kernels.BODIES))
@@ -135,7 +136,7 @@ def test_slab_matches_cell_list(slab, name):
     within the tolerance."""
     cell_env = tpairs.make_pair_env(slab.cells, slab.produce, slab.params)
     produce = slab.tp.material == 2 if name == "rigid_volume" else None
-    flags = 1 if name == "divergence" else 0
+    flags = 1 if name in ("divergence", "pbf_density") else 0
     out = [pair_kernels.run_plain_body(name, env, _fields(slab), slab.params,
                                        produce, flags)
            for env in (slab.tenv, cell_env)]

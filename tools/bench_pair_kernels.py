@@ -12,6 +12,12 @@ positions, d_ii, sum d_ij p_j and the CG vector of the implicit viscosity's
 matvec come from a numpy seed. One JSON line per
 engine, and a check that the two engines are bit-equal.
 
+Then the bodies of a PBF step (``nonpressure`` and the three PBF bodies,
+under poly6), where the package has them: on ``pbf_3d.json`` at full size
+and on ``pbf_2d.json`` (the 2D walk), each after ``STEPS`` steps, at the
+moved positions of the first iteration of the next step over its sort's
+environment, as the step runs them; one JSON line per scene and engine.
+
     python3 tools/bench_pair_kernels.py [--label TEXT] [--root DIR]
 
 ``--root`` times the package of another checkout (for example the parent
@@ -112,8 +118,10 @@ def main() -> int:
             1 if name == "divergence" else 0)
 
     # every body but the contact pass (its channel table needs a dynamic body)
+    # and PBF's, timed on PBF's scenes below
     bodies = [name for name in pk.BODIES
-              if set(pk.BODIES[name][3]) <= set(fields)]
+              if set(pk.BODIES[name][3]) <= set(fields)
+              and not name.startswith("pbf_")]
     outs = {}
     for engine, env in (("pair_pass", cell_env), ("pair_slab", slab_env)):
         ms = {}
@@ -128,7 +136,72 @@ def main() -> int:
                for name in bodies for c in outs["pair_pass", name])
     print(json.dumps({"label": args.label,
                       "engines_largest_difference": diff}), flush=True)
+    del sim, fields, outs, slab_env, cell_env
+    torch.cuda.empty_cache()
+    if "pbf_density" in pk.BODIES:
+        for scene_name in ("pbf_3d.json", "pbf_2d.json"):
+            bench_pbf(scene_name, card, args.label)
     return 0
+
+
+PBF_BODIES = ("nonpressure", "pbf_density", "pbf_lambda", "pbf_fix")
+
+
+def bench_pbf(scene_name: str, card: str, label: str) -> None:
+    """The bodies of a PBF step on one scene, both engines (one JSON line
+    each), and a check that the engines are bit-equal."""
+    from sph_project_tpu_torch.core.params import MATERIAL_FLUID
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.ops import pairs
+    from sph_project_tpu_torch.scene import load_scene
+    from sph_project_tpu_torch.sim import Plumbing, Simulation
+    from sph_project_tpu_torch.solvers import common, pbf
+
+    scene, state = load_scene(os.path.join(ROOT, "data", "scenes",
+                                            scene_name))
+    sim = Simulation(scene, state)
+    for _ in range(STEPS):
+        sim.step()
+    params = sim.params
+    st, env = Plumbing.neighbor_prep(sim.state, params)
+    p, rigid = Plumbing.non_pressure_acceleration(st.particles, st.rigid,
+                                                  env, st, params)
+    p = common.update_fluid_velocity(p, params)
+    p = common.update_fluid_position(p, rigid, params)
+    p = common.enforce_domain_boundary(p, params, MATERIAL_FLUID)
+    fluid = p.material == MATERIAL_FLUID
+    dens = pbf.compute_density_moving(p, env, params, fluid)
+    lam = pbf.compute_lambda(p, dens, env, params, fluid)
+    fields = {"pos": p.pos, "vel": p.vel, "material": p.material,
+              "mass": p.mass, "rest_volume": p.rest_volume,
+              "inv_rho": common._inv_rho(p), "density": dens, "lam": lam}
+    outs = {}
+    for engine, make in (("pair_pass", pairs.make_pair_env),
+                         ("pair_slab", pairs.make_slab_env)):
+        e = make(env.cells, env.produce, params)
+        ms = {}
+        for name in PBF_BODIES:
+            fk = {k: fields[k] for k in pk.fields_of(name)}
+
+            def run(name=name, fk=fk):
+                return pk.run_cuda(name, e, fk, params, fluid)
+
+            outs[engine, name] = run()
+            ms[name] = round(cuda_ms(run), 4)
+        # one non-pressure pass and pbf_iters of each PBF pass per step
+        step_ms = ms["nonpressure"] + params.pbf_iters * sum(
+            ms[name] for name in PBF_BODIES[1:])
+        print(json.dumps({"card": card, "label": label, "scene": scene_name,
+                          "engine": engine, "kind": params.kernel_type,
+                          "dim": params.dim, "ms": ms,
+                          "pair_ms_per_step": round(step_ms, 4)}),
+              flush=True)
+    diff = max(float((outs["pair_pass", name][c]
+                      - outs["pair_slab", name][c]).abs().max())
+               for name in PBF_BODIES for c in outs["pair_pass", name])
+    print(json.dumps({"label": label, "scene": scene_name,
+                      "engines_largest_difference": diff}), flush=True)
+
 
 
 if __name__ == "__main__":

@@ -15,12 +15,14 @@ step, the particles placed at the new poses) from the same state, ``STEPS``
 times, and lists its kernels. Ends with one JSON line of the same numbers.
 
     python3 tools/profile_torch_step.py [--scene FILE]
-        [--method dfsph|wcsph|pcisph|iisph]
+        [--method dfsph|wcsph|pcisph|iisph|pbf]
         [--pair-backend auto|pallas_dma|pallas] [--warm] [--resume CKPT]
 
 ``--method`` overrides the scene's simulation method, ``--pair-backend
 pallas`` profiles the slab-window pair engine instead of the cell-list
-engine, ``--warm`` turns both DFSPH warm starts on, ``--resume`` starts from
+engine, ``--warm`` turns both DFSPH warm starts on (``--scene
+data/scenes/pbf_3d.json`` profiles a PBF step: the pair kernels by body, one
+non-pressure pass and five of each PBF pass), ``--resume`` starts from
 a checkpoint of the scene (``run_simulation_torch.py --checkpoint_interval``;
 ``chip_smoke.py`` leaves the settled flagship in
 ``build/smoke/flagship/ckpt`` and ``dragon_bath`` after the fluid's arrival
@@ -105,7 +107,7 @@ def main() -> int:
     ap.add_argument("--scene", default=os.path.join(
         ROOT, "data", "scenes", "large_scale_dfsph.json"))
     ap.add_argument("--method", default=None,
-                    choices=("dfsph", "wcsph", "pcisph", "iisph"))
+                    choices=("dfsph", "wcsph", "pcisph", "iisph", "pbf"))
     ap.add_argument("--pair-backend", default="auto",
                     choices=("auto", "pallas_dma", "pallas"))
     ap.add_argument("--warm", action="store_true")
