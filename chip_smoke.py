@@ -119,8 +119,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    measured the same way; both walks on a 2D pile-up (about 450 neighbours
    a row, runs of 432 candidates across the staged tiles) and on the 3D
    pile-up under poly6, with ``nonpressure+rigid`` too;
-8. one JSON line with every kernel record (its launches count phase 6's
-   runs too), the card line again, then the result.
+8. the other methods in 2D and under poly6, PBF with implicit viscosity
+   and shape matching: ``pbf_3d.json`` at full size under DFSPH, WCSPH,
+   PCISPH and IISPH (3D poly6) and under PBF with implicit viscosity, a few
+   steps through each kernel (gated, exact launch sets, iteration and CG
+   counts printed, the two kernels' runs equal step for step); the 2D paths
+   (``pbf_2d.json`` under DFSPH, WCSPH and IISPH; the small 2D domain box
+   under DFSPH and with implicit viscosity) on the CPU and the card through
+   both kernels (iteration counts equal every step, the kernels bit-equal,
+   the card within 1e-5 of the CPU for the first steps); each new body
+   instance of both kernels against its plain version on the state its
+   path leaves, timed with its bound and instruction floor;
+   ``coupling_dfsph.json`` under the shape-matching backend at full size
+   (``SM_STEPS`` steps, touching pairs counted, bodies finite and rigid
+   within 5%, a short run through the slab-window kernel), ``rigid_dem``
+   measured there and the host synchronizations of one projection
+   printed; then every body, rigid variant, contact and DEM pass of both
+   kernels on the pile-ups of each new kind and dimension;
+9. one JSON line with every kernel record (its launches count phases 6's
+   and 8's runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -133,6 +150,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -349,6 +367,88 @@ PBF_2D_NN_STEPS = 4
 # the three passes in each of the 5 position iterations)
 PBF_BODIES = ("nonpressure", "pbf_density", "pbf_lambda", "pbf_fix")
 PBF_ITERS = 5
+# phase 8, the other methods in 2D and under poly6, PBF with implicit
+# viscosity and shape matching. pbf_3d.json (3D, poly6) per path: label,
+# overrides, steps through the cell-list kernel, then through the
+# slab-window kernel, and the bodies measured on the state it leaves (each
+# body once: the first path that runs it)
+KIND_3D_PATHS = (
+    ("DFSPH cold", dict(simulation_method="dfsph"), 4, 2,
+     ("density", "alpha", "divergence", "correction",
+      "density_alpha_divergence")),
+    ("WCSPH", dict(simulation_method="wcsph"), 3, 2, ("pressure",)),
+    ("PCISPH", dict(simulation_method="pcisph"), 3, 2,
+     ("pcisph_density_pred",)),
+    ("IISPH", dict(simulation_method="iisph"), 3, 2,
+     ("iisph_dii", "iisph_aii", "iisph_density_star", "iisph_dij_pj",
+      "iisph_sum_i")),
+    # the reference's common viscosity (its scene file has 0.0, where the
+    # solve would have nothing to do)
+    ("PBF, implicit viscosity", dict(viscosity_method="implicit",
+                                     viscosity=0.05), 3, 2, VISCOUS_BODIES))
+# 2D: label, scene (a file, or "box": the small 2D domain box), overrides,
+# steps, steps the CPU and the card are held within NN_TOL for (pbf_2d's
+# block falls freely until it lands in step 18), bodies measured. PCISPH
+# under poly6 in 2D runs on no configuration a user reaches: pbf_2d.json
+# divides by zero in its stiffness (no lattice point within h at that
+# spacing, in both packages: tests/test_torch_kinds_steps_pbf2d.py), and a
+# 2D scene at the 3D scenes' spacing is outside the poly6 kernel's range
+# (the 3D form in every dimension, as the JAX package's: the 2D box's
+# density starts at 10 rho0). Its instance is checked on the 2D pile-up.
+KIND_2D_PATHS = (
+    ("pbf_2d DFSPH", "pbf_2d.json", dict(simulation_method="dfsph"), 20, 10,
+     ("density", "alpha", "divergence", "correction",
+      "density_alpha_divergence")),
+    ("pbf_2d WCSPH", "pbf_2d.json", dict(simulation_method="wcsph"), 20, 10,
+     ("pressure",)),
+    ("pbf_2d IISPH", "pbf_2d.json", dict(simulation_method="iisph"), 20, 10,
+     ("iisph_dii", "iisph_aii", "iisph_density_star", "iisph_dij_pj",
+      "iisph_sum_i")),
+    ("2D box DFSPH", "box", {}, 20, 20,
+     ("density", "alpha", "nonpressure", "divergence", "correction",
+      "density_alpha_divergence", "rigid_volume")),
+    # viscosity 500 (tests/test_torch_kinds_steps.py: at 2000 this box's CG
+    # stalls at cg_max_iter in its second step)
+    ("2D box DFSPH, implicit viscosity", "box",
+     dict(viscosity_method="implicit", viscosity=500.0, viscosity_b=500.0),
+     20, 20, VISCOUS_BODIES))
+# shape matching on coupling_dfsph.json at full size: steps, and every how
+# many steps the touching pairs are counted
+SM_SCENE = "coupling_dfsph.json"
+SM_STEPS = 300
+SM_COUNT_EVERY = 50
+# and a short run through the slab-window kernel
+SM_SLAB_STEPS = 10
+# the rigidity measure of tests/test_rigid.py:298-327: each dynamic body's
+# largest and mean distance of its particles from their centroid, kept
+# within this share
+SM_RIGID_RTOL = 0.05
+# operations per pair of the new instances (OPS_PER_PAIR counts the cubic 3D
+# bodies): under poly6 each kernel form a body takes costs a sqrt and the
+# zero conditions beyond the cubic's shared reciprocal root (4 more); in 2D
+# the geometry is 5 operations (2 sub, 2 mul, 1 add) and a body saves its
+# per-component operations once
+KERNEL_FORMS = {"density": 1, "alpha": 1, "nonpressure": 2, "divergence": 1,
+                "correction": 1, "density_alpha_divergence": 2,
+                "rigid_volume": 1, "nonpressure_warm": 3, "pressure": 1,
+                "pcisph_density_pred": 1, "iisph_dii": 1, "iisph_aii": 1,
+                "iisph_density_star": 1, "iisph_dij_pj": 1, "iisph_sum_i": 1,
+                "visc_prep": 1, "visc_matvec": 1}
+POLY6_FORM_OPS = 4
+GEOMETRY_OPS_2D = 5
+PER_COMPONENT_OPS = {"density": 0, "alpha": 2, "nonpressure": 7,
+                     "divergence": 3, "correction": 3,
+                     "density_alpha_divergence": 5, "rigid_volume": 0,
+                     "nonpressure_warm": 10, "pressure": 3,
+                     "pcisph_density_pred": 3, "iisph_dii": 2, "iisph_aii": 6,
+                     "iisph_density_star": 3, "iisph_dij_pj": 2,
+                     "iisph_sum_i": 9, "visc_prep": 6, "visc_matvec": 4}
+# rigid_dem: the material and object compares (3) on a pair, and on a
+# touching one the distance (sqrt), the penetration, 1/max(dist, 1e-9), the
+# normal speed (2D: 5, 3D: 8 with its product), the force's two terms and
+# its clamp, its scale, and the dim sums
+DEM_PAIR_OPS = 3
+DEM_TOUCH_OPS = {3: 23, 2: 18}
 
 
 def check(ok: bool, what: str) -> None:
@@ -418,6 +518,24 @@ def small_box_config() -> dict:
         "FluidBlocks": [{"objectId": 0, "start": [0.1, 0.08, 0.1],
                          "end": [0.2, 0.18, 0.2], "translation": [0, 0, 0],
                          "scale": [1, 1, 1], "velocity": [0.0, -2.5, 0.0],
+                         "density": 1000.0, "color": [50, 100, 200],
+                         "entryTime": -1.0}]}
+
+
+def box_2d_config() -> dict:
+    """The 2D domain box of the CPU tests (tests/test_torch_kinds.py
+    box2d_config): a 0.1 x 0.1 block thrown onto the floor of a 0.3 x 0.3
+    box of static walls."""
+    return {
+        "Configuration": {
+            "domainStart": [0, 0], "domainEnd": [0.3, 0.3],
+            "addDomainBox": True, "particleRadius": 0.01, "density0": 1000,
+            "gravitation": [0, -9.81], "simulationMethod": "dfsph",
+            "viscosityMethod": "standard", "timeStepSize": 1e-3,
+            "viscosity": 0.05, "viscosity_b": 0.03},
+        "FluidBlocks": [{"objectId": 0, "start": [0.1, 0.08],
+                         "end": [0.2, 0.18], "translation": [0, 0],
+                         "scale": [1, 1], "velocity": [0.0, -2.5],
                          "density": 1000.0, "color": [50, 100, 200],
                          "entryTime": -1.0}]}
 
@@ -511,19 +629,27 @@ def expected_bodies(params) -> set:
         return f"{body}+rigid" if rigid else body
 
     implicit = params.viscosity_method == "implicit"
+    walls = {"rigid_volume"} if params.has_rigid else set()
+    if method == "pbf":
+        out = {"nonpressure", *PBF_BODIES[1:], *walls}
+        if implicit:
+            out.update(VISCOUS_BODIES)
+        return out
     if method == "dfsph":
         # the warm correction rides the non-pressure pass only with standard
         # viscosity
         np_body = "nonpressure_warm" if params.dfsph_warm_start and \
             not implicit else "nonpressure"
-        out = {"density", "alpha", "rigid_volume", "divergence", v(np_body),
+        out = {"density", "alpha", *walls, "divergence", v(np_body),
                v("correction"), v("density_alpha_divergence")}
     else:
-        out = {"rigid_volume", "density", v("nonpressure"), v("pressure"),
+        out = {*walls, "density", v("nonpressure"), v("pressure"),
                *(b for b in NEW_METHOD_BODIES[method] if b != "pressure")}
         if method == "pcisph":
             out.add("pressure")      # the prediction loop's, without wrench
-    if rigid and params.contact_channels:
+    if rigid and params.rigid_solver == "shape_matching":
+        out.add("rigid_dem")
+    elif rigid and params.contact_channels:
         out.add("rigid_contact")
     if implicit:
         out.update(VISCOUS_BODIES)
@@ -556,9 +682,19 @@ def read_counts() -> dict:
     return dict(pk.launches, permute=permlib.launches["permute"])
 
 
+def launch_keys(params, engine: str) -> set:
+    """The launch keys (``pair_kernels.launch_key``: the kind and the
+    dimension of ``params``) of the bodies a path of ``params`` launches."""
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    return {pk.launch_key(engine, b.split("+")[0],
+                          pk.RIGID if b.endswith("+rigid") else 0,
+                          params.kernel_type, params.dim)
+            for b in expected_bodies(params)}
+
+
 def check_launches(label: str, params, engine: str, launches: dict) -> None:
     """Every kernel of the path launched, and no other."""
-    expected = {f"{engine}/{b}" for b in expected_bodies(params)}
+    expected = launch_keys(params, engine)
     expected.add("permute")
     for k, v in launches.items():
         check((v > 0) == (k in expected),
@@ -855,6 +991,7 @@ def main() -> int:
     from sph_project_tpu_torch.ops import pairs
     from sph_project_tpu_torch.ops import permute as permlib
     from sph_project_tpu_torch.rigid import integrator
+    from sph_project_tpu_torch.rigid import shape_matching as smlib
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.solvers import common
     from sph_project_tpu_torch.solvers import viscosity_cg
@@ -1031,8 +1168,9 @@ def main() -> int:
     total_launches = {k: sum(p[k] for p in path_launches)
                       for k in path_launches[0]}
     for k, v in total_launches.items():
-        # PBF's bodies, the poly6 and the 2D instances run in phase 7
-        if "@" not in k and "/pbf_" not in k:
+        # PBF's bodies run in phase 7, the poly6 and the 2D instances in
+        # phases 7 and 8, the DEM pass in phase 8
+        if "@" not in k and "/pbf_" not in k and not k.endswith("/rigid_dem"):
             check(v > 0, f"kernel {k} launched on no path")
 
     # ---- 4. kernels vs plain versions at the flagship's shapes -------------
@@ -1049,10 +1187,11 @@ def main() -> int:
         def seeded(x):
             return torch.from_numpy(x.astype(np.float32)).cuda()
 
+        dim = params.dim
         kappa = seeded(rng.uniform(-50.0, 200.0, n))
         pressure = seeded(rng.uniform(0.0, 5000.0, n))
         fluid = (p.material == MATERIAL_FLUID)[:, None]
-        shift = seeded(rng.normal(0.0, 0.1 * params.particle_radius, (n, 3)))
+        shift = seeded(rng.normal(0.0, 0.1 * params.particle_radius, (n, dim)))
         rho2 = torch.clamp_min(p.density * p.density, 1e-12)
         return {"pos": p.pos, "vel": p.vel, "material": p.material,
                 "mass": p.mass, "rest_volume": p.rest_volume,
@@ -1065,10 +1204,10 @@ def main() -> int:
                 "inv_star2": 1.0 / torch.clamp_min(
                     torch.square(st.iisph_density_star), 1e-12),
                 "pred": torch.where(fluid, p.pos + shift, p.pos),
-                "dii": seeded(rng.normal(0.0, 1e-2, (n, 3))),
-                "dij_pj": seeded(rng.normal(0.0, 10.0, (n, 3))),
+                "dii": seeded(rng.normal(0.0, 1e-2, (n, dim))),
+                "dij_pj": seeded(rng.normal(0.0, 10.0, (n, dim))),
                 "x": torch.where(fluid, p.vel + seeded(
-                    rng.normal(0.0, 0.1, (n, 3))), torch.zeros_like(p.vel))}
+                    rng.normal(0.0, 0.1, (n, dim))), torch.zeros_like(p.vel))}
 
     def work_of_rows(env, params, fields, produce):
         """(candidates tested, pairs inside the radius) over these rows, the
@@ -1926,13 +2065,521 @@ def main() -> int:
     pbf_phase()
     say(f"[7] PBF phase: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 8. records --------------------------------------------------------
-    # per engine: every body but the contact pass and the PBF bodies at the
-    # flagship's shapes, the rigid variants, and the bodies of a PBF step in
-    # 3D and in 2D; and the gather
+    # ---- 8. the other methods in 2D and under poly6, PBF with implicit
+    # viscosity, shape matching ------------------------------------------------
+    def timed(fn):
+        """(fn(), its device time in ms), from CUDA events around one call."""
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def kind_ops(body, params, ops):
+        """``ops``, a cubic 3D body's operations per pair, for ``params``'
+        kind and dimension (KERNEL_FORMS, PER_COMPONENT_OPS)."""
+        if params.kernel_type == "poly6":
+            ops += POLY6_FORM_OPS * KERNEL_FORMS[body]
+        return ops - (3 - params.dim) * PER_COMPONENT_OPS[body]
+
+    new_records = []
+
+    def compare(tag, out_k, out_p):
+        """Largest |kernel - plain| over the outputs, each within TOL of its
+        largest |plain|; counts exact."""
+        err = 0.0
+        for c in out_k:
+            e = float((out_k[c] - out_p[c]).abs().max())
+            err = max(err, e)
+            if c == "cnt":
+                check(e == 0.0, f"{tag}: counts differ")
+            lim = TOL * max(1.0, float(out_p[c].abs().max()))
+            check(e <= lim, f"{tag}.{c}: max error {e} > {lim}")
+        return err
+
+    def measure_kinds(tag, sim, bodies):
+        """``bodies`` of both kernels on ``sim``'s state, sorted again as its
+        next step would sort it, against their plain versions (counts
+        exact), the kernels bit-equal; their times, bound and instruction
+        floor, and a record per body and engine."""
+        params = sim.params
+        st, env = simlib.Plumbing.neighbor_prep(sim.state, params)
+        sim.state = st.replace(cached_neighbors=env)
+        fields = pair_fields(sim)
+        rigid_rows = sim.state.particles.material == MATERIAL_RIGID
+        envs = {"pair_pass": pairs.make_pair_env(env.cells, env.produce,
+                                                 params),
+                "pair_slab": pairs.make_slab_env(env.cells, env.produce,
+                                                 params)}
+        geom = GEOMETRY_OPS if params.dim == 3 else GEOMETRY_OPS_2D
+        outs = {}
+        for engine, e in envs.items():
+            slab = engine == "pair_slab"
+            table = ((e.starts, e.lens, e.cells) if slab
+                     else (e.cells, e.cell_start))
+            work = {}
+            for body in bodies:
+                flags = pk.COUNT if body == "divergence" else 0
+                wall = body == "rigid_volume"
+                rows = rigid_rows if wall else e.produce
+                if wall not in work:
+                    work[wall] = (*work_of_rows(e, params, fields, rows),
+                                  rows_read(e, params, fields, rows))
+                tests, npairs, read = work[wall]
+                fk = {k: fields[k] for k in pk.fields_of(body, flags)}
+
+                def kernel(e=e):
+                    return pk.run_cuda(body, e, fk, params, rows, flags)
+
+                out_k = kernel()
+                out_p, plain_ms = timed(lambda: pk.run_plain_body(
+                    body, e, fk, params, rows, flags))
+                key = pk.params_key(engine, body, params)
+                err = compare(f"{tag}, {key}", out_k, out_p)
+                outs[(engine, body)] = out_k
+                ms = cuda_ms(kernel, 20)
+                if body in VISC_OPS:
+                    n_rj = rigid_j_pairs(e, params, fields, rows)
+                    f_ops, r_ops = (kind_ops(body, params, o)
+                                    for o in VISC_OPS[body])
+                    n_ops = (npairs * geom + (npairs - n_rj) * f_ops
+                             + n_rj * r_ops)
+                else:
+                    n_ops = npairs * (geom + kind_ops(body, params,
+                                                      OPS_PER_PAIR[body]))
+                n_bytes = pass_bytes(fk, read, table, len(out_k),
+                                     params.n_pad)
+                b_ms, b_by = bound_ms(n_bytes, n_ops)
+                floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
+                say(f"[8] {tag}, {key}: max_abs_err {err:.3e}, kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                    f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+                    f"{n_ops / 1e9:.5f} Gop), instruction floor "
+                    f"{floor_ms:.5f} ms, {tests} candidates tested, "
+                    f"{npairs} pairs")
+                new_records.append(dict(
+                    name=key, route="cuda", source=ENGINES[engine][0],
+                    replaces=ENGINES[engine][1], launches=0, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, issue_floor_ms=floor_ms,
+                    tests_per_pair=tests / max(npairs, 1), state=tag))
+        for body in bodies:
+            a, b = outs[("pair_slab", body)], outs[("pair_pass", body)]
+            check(all(torch.equal(a[c], b[c]) for c in a),
+                  f"{tag}: the two pair kernels differ on {body}")
+        say(f"[8] {tag}: the two kernels bit-equal on {', '.join(bodies)}")
+
+    launches8: dict = {}
+
+    def run_path(tag, load, steps, device="cuda", engine="pair_pass"):
+        """``load()`` -> (scene, state); a Simulation on ``device`` and
+        ``steps`` steps, each gated (finite positions, overflow 0, the fluid
+        count) and printed; on the card the launches zeroed just before and
+        read just after, every kernel of the path launched and no other.
+        Returns (simulation, per-step (iterations, fluid positions on the
+        CPU))."""
+        t0 = time.perf_counter()
+        scene, state = load()
+        params = scene.params
+        n_fluid = int((state.particles.material == MATERIAL_FLUID).sum())
+        if device == "cuda":
+            zero_counts()
+        sim = simlib.Simulation(scene, state, device=device)
+        implicit = params.viscosity_method == "implicit"
+        log, ms = [], []
+        for s in range(steps):
+            t1 = time.perf_counter()
+            d = sim.step()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            p = sim.state.particles
+            fl = p.material == MATERIAL_FLUID
+            its = tuple(int(d[k]) for k in ("solver_iters", "div_iters")
+                        if k in d)
+            if implicit:
+                its += (viscosity_cg.last_solve["cg_iters"],)
+            check(bool(torch.isfinite(p.pos).all()),
+                  f"{tag}, step {s}: positions not finite")
+            check(int(d["neighbor_overflow"]) == 0
+                  and int(d["sort_overflow"]) == 0, f"{tag}, step {s}: overflow")
+            check(int(d["fluid_num"]) == n_fluid, f"{tag}, step {s}: fluid count")
+            log.append((its, p.pos[fl].cpu().clone()))
+            if device == "cuda" and (steps <= 5 or s % 5 == 4 or s == 0):
+                say(f"[8] {tag}, step {s}: {ms[-1]:.2f} ms, iterations "
+                    f"{its}, density_avg {float(d['density_avg']):.3f} max "
+                    f"{float(d['density_max']):.3f}, vel_max*dt "
+                    f"{float(d['vel_max']) * params.dt:.5f} m")
+        if device == "cuda":
+            launches = read_counts()
+            check_launches(tag, params, engine, launches)
+            for k, v in launches.items():
+                if v:
+                    launches8[k] = launches8.get(k, 0) + v
+            say(f"[8] {tag}: {n_fluid} fluid, n_pad {params.n_pad}, loaded and"
+                f" run in {time.perf_counter() - t0:.1f} s; median step "
+                f"{median(ms[1:] if len(ms) > 1 else ms):.2f} ms; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        return sim, log
+
+    measured = set()
+
+    def kinds_3d():
+        """pbf_3d.json under DFSPH, WCSPH, PCISPH, IISPH (3D poly6) and
+        under PBF with implicit viscosity, through both kernels: the two
+        runs' iteration counts and positions equal step for step (the
+        kernels are bit-equal), the bodies measured on the cell-list run's
+        state."""
+        for label, over, n_cell, n_slab, bodies in KIND_3D_PATHS:
+            logs = {}
+            for engine, steps in (("pair_pass", n_cell), ("pair_slab", n_slab)):
+                over_e = dict(over, **(SLAB if engine == "pair_slab" else {}))
+                sim, logs[engine] = run_path(
+                    f"{PBF_3D} {label}, {engine}",
+                    lambda: load_scene(os.path.join(SCENES, PBF_3D), **over_e),
+                    steps, engine=engine)
+                check(sim.params.kernel_type == "poly6"
+                      and sim.params.dim == 3, "pbf_3d parameters")
+                if engine == "pair_pass":
+                    kept = sim
+                else:
+                    del sim
+            for s, (a, b) in enumerate(zip(logs["pair_slab"],
+                                           logs["pair_pass"])):
+                check(a[0] == b[0] and torch.equal(a[1], b[1]),
+                      f"{PBF_3D} {label}, step {s}: the kernels' runs differ")
+            say(f"[8] {PBF_3D} {label}: the two kernels' runs equal for "
+                f"{n_slab} steps (iterations and positions)")
+            todo = [b for b in bodies
+                    if (b, "poly6", 3) not in measured]
+            measure_kinds(f"{PBF_3D} {label}", kept, todo)
+            measured.update((b, "poly6", 3) for b in todo)
+            del kept
+            torch.cuda.empty_cache()
+
+    def kinds_2d():
+        """The 2D paths on the CPU and on the card through both kernels:
+        iteration counts equal in all three runs every step, the two kernels'
+        positions equal, the card within NN_TOL of the CPU for the path's
+        first steps; the bodies measured on the card's cell-list state."""
+        for label, scene_name, over, steps, nn_steps, bodies in KIND_2D_PATHS:
+            def load(be, over=over, scene_name=scene_name):
+                if scene_name == "box":
+                    return load_scene(config=SimConfig(config=box_2d_config()),
+                                      pair_backend=be, **over)
+                return load_scene(os.path.join(SCENES, scene_name),
+                                  pair_backend=be, **over)
+
+            runs = {}
+            for dev, be in (("cpu", "pallas_dma"), ("cuda", "pallas_dma"),
+                            ("cuda", "pallas")):
+                engine = "pair_slab" if be == "pallas" else "pair_pass"
+                sim, runs[(dev, be)] = run_path(
+                    f"{label}, {dev} {engine}", lambda be=be: load(be), steps,
+                    device=dev, engine=engine)
+                if (dev, be) == ("cuda", "pallas_dma"):
+                    kept = sim
+            worst = 0.0
+            for s in range(steps):
+                a = runs[("cuda", "pallas_dma")][s]
+                b = runs[("cpu", "pallas_dma")][s]
+                c = runs[("cuda", "pallas")][s]
+                check(a[0] == b[0] == c[0], f"{label}, step {s}: iterations "
+                      f"{a[0]} (card), {b[0]} (CPU), {c[0]} (slab-window)")
+                check(torch.equal(a[1], c[1]),
+                      f"{label}, step {s}: the two kernels differ")
+                nn = float(torch.cdist(a[1].double(), b[1].double())
+                           .min(dim=1).values.max())
+                if s < nn_steps:
+                    check(nn < NN_TOL, f"{label}, step {s}: CPU and card "
+                          f"differ by {nn}")
+                    worst = max(worst, nn)
+            say(f"[8] {label}: {steps} steps, iterations equal on the CPU and "
+                f"the card every step ({[r[0] for r in runs[('cuda', 'pallas_dma')]]}), "
+                f"the kernels bit-equal; CPU vs card max nearest-neighbour "
+                f"distance {worst:.3e} over the first {nn_steps} steps, "
+                f"{nn:.3e} at the last")
+            params = kept.params
+            todo = [b for b in bodies if (b, params.kernel_type, 2)
+                    not in measured]
+            measure_kinds(label, kept, todo)
+            measured.update((b, params.kernel_type, 2) for b in todo)
+
+    def dem_check(tag, params, env, fields, dyn_rows, measure):
+        """rigid_dem of both kernels on one state against its plain version,
+        the kernels bit-equal; with ``measure`` the times and a record per
+        engine. Returns the touching pairs."""
+        def touching(cx, d2):
+            return ((cx.blk("material") == MATERIAL_RIGID)
+                    & (cx.slab("material") == MATERIAL_RIGID)
+                    & (cx.blk("object_id") != cx.slab("object_id"))
+                    & (torch.sqrt(d2) < params.particle_diameter))
+
+        n_touch = count_pairs(env, params, fields, dyn_rows, touching)
+        fk = {k: fields[k] for k in pk.fields_of("rigid_dem")}
+        envs = {"pair_pass": pairs.make_pair_env(env.cells, env.produce,
+                                                 params),
+                "pair_slab": pairs.make_slab_env(env.cells, env.produce,
+                                                 params)}
+        outs = []
+        geom = GEOMETRY_OPS if params.dim == 3 else GEOMETRY_OPS_2D
+        for engine, e in envs.items():
+            def kernel(e=e):
+                return pk.run_cuda("rigid_dem", e, fk, params, dyn_rows)
+
+            out_k = kernel()
+            out_p, plain_ms = timed(lambda: pk.run_plain_body(
+                "rigid_dem", e, fk, params, dyn_rows))
+            key = pk.params_key(engine, "rigid_dem", params)
+            err = compare(f"{tag}, {key}", out_k, out_p)
+            outs.append(out_k)
+            say(f"[8] {tag}, {key}: {int(dyn_rows.sum())} dynamic rigid rows, "
+                f"{n_touch} touching pairs, max_abs_err {err:.3e} (largest "
+                f"|f| {max(float(v.abs().max()) for v in out_p.values()):.3e})")
+            if not measure:
+                continue
+            ms = cuda_ms(kernel, 20)
+            slab = engine == "pair_slab"
+            table = ((e.starts, e.lens, e.cells) if slab
+                     else (e.cells, e.cell_start))
+            tests, npairs = work_of_rows(e, params, fields, dyn_rows)
+            read = rows_read(e, params, fields, dyn_rows)
+            n_ops = npairs * (geom + DEM_PAIR_OPS) + \
+                n_touch * DEM_TOUCH_OPS[params.dim]
+            n_bytes = pass_bytes(fk, read, table, params.dim, params.n_pad)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
+            say(f"[8] {tag}, {key}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.5f} ms ({b_by}), instruction floor "
+                f"{floor_ms:.5f} ms, {tests} candidates tested, {npairs} pairs")
+            new_records.append(dict(
+                name=key, route="cuda", source=ENGINES[engine][0],
+                replaces=ENGINES[engine][1], launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, issue_floor_ms=floor_ms,
+                tests_per_pair=tests / max(npairs, 1), state=tag))
+        check(all(torch.equal(outs[0][c], outs[1][c]) for c in outs[0]),
+              f"{tag}: the two pair kernels differ on rigid_dem")
+        return n_touch
+
+    def rigidity(sim):
+        """Per dynamic body: the largest and the mean distance of its
+        particles from their centroid (tests/test_rigid.py:298-327)."""
+        p = sim.state.particles
+        out = []
+        for oid in sim.params.contact_channels:
+            x = p.pos[(p.object_id == oid) & (p.material == MATERIAL_RIGID)]
+            r = (x - x.mean(0)).norm(dim=1)
+            out.append((float(r.max()), float(r.mean())))
+        return np.array(out)
+
+    def shape_matching_path():
+        """coupling_dfsph.json under the shape-matching backend at full size:
+        SM_STEPS steps, the touching pairs counted every SM_COUNT_EVERY, the
+        bodies finite and rigid; rigid_dem measured on the final state and,
+        where no pair touches there, checked on the pile-up's squeezed
+        bodies."""
+        t0 = time.perf_counter()
+        scene, state = load_scene(os.path.join(SCENES, SM_SCENE),
+                                  rigid_solver="shape_matching")
+        params = scene.params
+        check(params.rigid_solver == "shape_matching"
+              and params.has_dynamic_rigid, f"{SM_SCENE} parameters")
+        n_fluid = int((state.particles.material == MATERIAL_FLUID).sum())
+        zero_counts()
+        sim = simlib.Simulation(scene, state)
+        r0 = rigidity(sim)
+        ms, touched = [], 0
+        for s in range(SM_STEPS):
+            t1 = time.perf_counter()
+            d = sim.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            p = sim.state.particles
+            check(bool(torch.isfinite(p.pos).all()),
+                  f"{SM_SCENE}, step {s}: positions not finite")
+            check(int(d["neighbor_overflow"]) == 0
+                  and int(d["fluid_num"]) == n_fluid,
+                  f"{SM_SCENE}, step {s}: overflow or fluid count")
+            rigid = sim.state.rigid
+            body = {k: getattr(rigid, k)[list(params.contact_channels)]
+                    for k in ("com", "vel", "rot")}
+            check(all(bool(torch.isfinite(v).all()) for v in body.values()),
+                  f"{SM_SCENE}, step {s}: bodies not finite")
+            if s % SM_COUNT_EVERY == SM_COUNT_EVERY - 1:
+                st = sim.state
+                env = pairs.make_pair_env(st.cached_neighbors.cells,
+                                          st.cached_neighbors.produce, params)
+                fields = {"pos": p.pos, "material": p.material,
+                          "object_id": p.object_id,
+                          "chan": integrator.channel_table(rigid, params)}
+                dyn = integrator.dynamic_rigid_mask(p, rigid, params)
+                n = count_pairs(env, params, fields, dyn, lambda cx, d2: (
+                    (cx.blk("material") == MATERIAL_RIGID)
+                    & (cx.slab("material") == MATERIAL_RIGID)
+                    & (cx.blk("object_id") != cx.slab("object_id"))
+                    & (torch.sqrt(d2) < params.particle_diameter)))
+                touched = max(touched, n)
+                say(f"[8] {SM_SCENE} shape matching, step {s}: "
+                    f"{ms[-1]:.2f} ms, touching pairs {n}, iterations "
+                    f"({int(d['solver_iters'])}, {int(d['div_iters'])}), com "
+                    f"{[[round(x, 4) for x in c] for c in body['com'].tolist()]}"
+                    f", vel {[[round(x, 4) for x in c] for c in body['vel'].tolist()]}")
+        launches = read_counts()
+        check_launches(f"{SM_SCENE} shape matching", params, "pair_pass",
+                       launches)
+        for k, v in launches.items():
+            if v:
+                launches8[k] = launches8.get(k, 0) + v
+        r1 = rigidity(sim)
+        worst = float(np.abs(r1 / r0 - 1.0).max())
+        check(worst <= SM_RIGID_RTOL, f"{SM_SCENE}: a body deformed by "
+              f"{worst:.3%} (radius max and mean {r0.tolist()} -> "
+              f"{r1.tolist()})")
+        say(f"[8] {SM_SCENE} shape matching: {SM_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s, median {median(ms[1:]):.2f} "
+            f"ms; rigidity (radius max, mean per body) {r0.round(5).tolist()}"
+            f" -> {r1.round(5).tolist()}, largest change {worst:.4%}; the "
+            f"most touching pairs at a count {touched}; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        st, env = simlib.Plumbing.neighbor_prep(sim.state, params)
+        del sim
+        p = st.particles
+        fields = {"pos": p.pos, "vel": p.vel, "material": p.material,
+                  "object_id": p.object_id, "rest_volume": p.rest_volume,
+                  "chan": integrator.channel_table(st.rigid, params)}
+        dyn = integrator.dynamic_rigid_mask(p, st.rigid, params)
+        n_touch = dem_check(f"{SM_SCENE} after {SM_STEPS} steps", params, env,
+                            fields, dyn, measure=True)
+        # whether the projection waits for the card (torch.linalg.svd and
+        # det on CUDA may, for their error checks): the synchronizations
+        # torch's sync debug mode reports over one projection
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                smlib.shape_matching_step(p, st.rigid, params)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        say(f"[8] {SM_SCENE}: one shape-matching projection on the card "
+            f"synchronizes with the host {len(caught)} times"
+            f"{': ' if caught else ''}"
+            f"{'; '.join(sorted({str(w.message)[:120] for w in caught}))}")
+        del st, env, p, fields
+        torch.cuda.empty_cache()
+        # the same path through the slab-window kernel, a few steps
+        scene, state = load_scene(os.path.join(SCENES, SM_SCENE),
+                                  rigid_solver="shape_matching", **SLAB)
+        zero_counts()
+        slab_sim = simlib.Simulation(scene, state)
+        for s in range(SM_SLAB_STEPS):
+            slab_sim.step()
+        check(bool(torch.isfinite(slab_sim.state.particles.pos).all()),
+              f"{SM_SCENE}, slab-window kernel: positions not finite")
+        launches = read_counts()
+        check_launches(f"{SM_SCENE} shape matching, slab-window", params,
+                       "pair_slab", launches)
+        for k, v in launches.items():
+            if v:
+                launches8[k] = launches8.get(k, 0) + v
+        say(f"[8] {SM_SCENE} shape matching, slab-window kernel: "
+            f"{SM_SLAB_STEPS} steps, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        del slab_sim
+        torch.cuda.empty_cache()
+        if n_touch == 0:
+            say(f"[8] {SM_SCENE}: no pair touches in {SM_STEPS} steps (the "
+                f"bodies fall toward the fluid); rigid_dem is checked on the "
+                f"pile-up's squeezed bodies below")
+
+    def pile_up_kinds():
+        """Every body, rigid variant, contact pass and the DEM pass of both
+        kernels on the pile-up states of the new kinds and dimensions
+        (lists that fill and flush, runs across tiles, touching bodies)
+        against their plain versions, the kernels bit-equal."""
+        cases = (("3D pile-up, poly6", pk.pile_up_case, "poly6",
+                  pk.PILE_UP_CHANNELS, None),
+                 ("3D pile-up, cubic", pk.pile_up_case, "cubic",
+                  pk.PILE_UP_CHANNELS, ("rigid_dem",)),
+                 ("2D pile-up, cubic", pk.pile_up_case_2d, "cubic",
+                  pk.PILE_UP_CHANNELS_2D, None),
+                 ("2D pile-up, poly6", pk.pile_up_case_2d, "poly6",
+                  pk.PILE_UP_CHANNELS_2D, None))
+        for label, make, kind, chans, only in cases:
+            params, cells, produce, fields = make()
+            params = dataclasses.replace(params, kernel_type=kind,
+                                         contact_channels=chans,
+                                         has_dynamic_rigid=True)
+            cells, produce = cells.cuda(), produce.cuda()
+            fields = {k: v.cuda() for k, v in fields.items()}
+            dyn = (fields["material"] == MATERIAL_RIGID) & \
+                (fields["is_dynamic"] > 0)
+            envs = {"pair_pass": pairs.make_pair_env(cells, produce, params),
+                    "pair_slab": pairs.make_slab_env(cells, produce, params)}
+            names = only or tuple(pk.BODIES)
+            done = []
+            for name in names:
+                for flags in (0, pk.RIGID):
+                    if flags and name not in pk.RIGID_OUTPUTS:
+                        continue
+                    if name in ("divergence", "pbf_density"):
+                        flags |= pk.COUNT
+                    rows = (dyn if name in ("rigid_contact", "rigid_dem",
+                                            "rigid_volume")
+                            else produce | dyn if flags & pk.RIGID
+                            else produce)
+                    fk = {k: fields[k] for k in pk.fields_of(name, flags)}
+                    outs = []
+                    for engine, e in envs.items():
+                        out_k = pk.run_cuda(name, e, fk, params, rows, flags)
+                        out_p = pk.run_plain_body(name, e, fk, params, rows,
+                                                  flags)
+                        compare(f"{label}, {engine}/{name}", out_k, out_p)
+                        outs.append(out_k)
+                    check(all(torch.equal(outs[0][c], outs[1][c])
+                              for c in outs[0]),
+                          f"{label}: the two pair kernels differ on {name}")
+                    done.append(name + ("+rigid" if flags & pk.RIGID else ""))
+            n_touch = dem_check(label, params, envs["pair_pass"], fields, dyn,
+                                measure=False)
+            check(n_touch > 0, f"{label}: no touching pairs")
+            say(f"[8] {label}: {len(done)} instances within tolerance of "
+                f"their plain versions and bit-equal between the kernels "
+                f"({', '.join(done)})")
+
+    t0 = time.perf_counter()
+    kinds_3d()
+    say(f"[8] pbf_3d paths: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    kinds_2d()
+    say(f"[8] 2D paths: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    shape_matching_path()
+    say(f"[8] shape matching: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    pile_up_kinds()
+    say(f"[8] pile-ups: {time.perf_counter() - t1:.1f} s")
+    # the records count every launch of the main paths, phase 8's included
+    for rec in records:
+        rec["launches"] += launches8.get(rec["name"], 0)
+    for rec in new_records:
+        rec["launches"] = launches8.get(rec["name"], 0)
+        check(rec["launches"] > 0, f"{rec['name']}: measured on {rec['state']}"
+              f" but launched on no path")
+    records.extend(new_records)
+    say(f"[8] phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. records --------------------------------------------------------
+    # per engine: every body but the contact pass, the DEM pass and the PBF
+    # bodies at the flagship's shapes, the rigid variants, the bodies of a
+    # PBF step in 3D and in 2D, phase 8's instances and its DEM pass; and
+    # the gather
     n_pbf = len([b for b in pk.BODIES if b.startswith("pbf_")])
-    check(len(records) == 2 * (len(pk.BODIES) - 1 - n_pbf + len(RIGID_VARIANTS)
-                               + 2 * len(PBF_BODIES)) + 1,
+    check(len(records) == 2 * (len(pk.BODIES) - 2 - n_pbf + len(RIGID_VARIANTS)
+                               + 2 * len(PBF_BODIES) + len(measured) + 1) + 1,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))
     say(card)

@@ -31,7 +31,7 @@
 // phase recomputes R and d2 from the same operands in the same order as the
 // test, so the rounding at the support radius is the test's.
 //
-// The walk is a template on the dimension, the body's DIM (BodyDim). A 2D
+// The walk is a template on the dimension, the body's DIM. A 2D
 // grid (gx, gy), whose flat cell id is x*gy + y, arrives as the 3D grid
 // (gx, 1, gy) with the same ids (ops/pairs.py grid3): a row of cells is one
 // x, and a row's stencil is the 3 segments dx = -1, 0, 1, each over the
@@ -81,7 +81,7 @@ struct BlockGroup {
 // One row's state: its position, the body's own fields, the sums and the list.
 template <class B>
 struct Row {
-  static constexpr int DIM = BodyDim<B>::value;
+  static constexpr int DIM = B::DIM;
   using S = typename Staged<DIM>::type;
   B body;
   float acc[B::NOUT];

@@ -13,18 +13,20 @@ the engine's plain executor; the CUDA path of neither engine ever gives way to
 a plain version. Outputs are per row, zero on rows that do not produce; vector
 outputs come back as (N, dim).
 
-Only bodies of the ported paths exist (DFSPH, WCSPH, PCISPH, IISPH, PBF):
+The bodies of the ported paths (DFSPH, WCSPH, PCISPH, IISPH, PBF):
 standard and implicit viscosity, fluid, static walls and dynamic rigid
-bodies. A body that has outputs for dynamic rigid bodies (the wrenches, the
-same-object kernel sum) adds them under the flag :data:`RIGID`, after its
-other outputs; ``rigid_contact`` has one group of outputs per contact
-channel, so its outputs depend on ``params.contact_channels``.
+bodies under either rigid backend (``rigid_contact`` for the integrator's
+impulses, ``rigid_dem`` for shape matching's DEM springs). A body that has
+outputs for dynamic rigid bodies (the wrenches, the same-object kernel sum)
+adds them under the flag :data:`RIGID`, after its other outputs;
+``rigid_contact`` has one group of outputs per contact channel, so its
+outputs depend on ``params.contact_channels``.
 
-The bodies follow ``params.kernel_type`` (the cubic spline, or PBF's poly6
-W with the spiky gradient) and ``params.dim``. On the card the bodies of
-PBF's path (:data:`KIND_BODIES`) run in 2D and 3D under either kind; the
-others run in 3D under the cubic spline, the combinations the ported
-methods use (``sim._check_ported`` refuses the rest).
+Every body follows ``params.kernel_type`` (the cubic spline, or PBF's poly6
+W with the spiky gradient) and ``params.dim``, on the CPU and on the card:
+a vector output has ``dim`` components, a torque three in 3D and one in 2D
+(``common.pair_cross``). Each engine has one library per kind and dimension
+(``_build.VARIANTS``).
 """
 from __future__ import annotations
 
@@ -214,7 +216,8 @@ def pressure_body(cx, params, flags=0):
     acceleration); ``p_rho2`` = p / max(rho^2, 1e-12) per particle.
     ``flags & RIGID`` adds the force ``fpp`` and torque ``tpp`` on dynamic
     rigid rows from their fluid neighbours, the torque per pair, its arm
-    the fluid particle's offset x_i - R - com_i."""
+    the fluid particle's offset x_i - R - com_i (in 2D the scalar torque of
+    ``pair_cross``)."""
     R, d2, mask = cx.geometry()
     gw = _gw(d2, params)
     mat_j = cx.slab("material")
@@ -231,14 +234,18 @@ def pressure_body(cx, params, flags=0):
         m_n = params.density0 * cx.slab("rest_volume")
         c = -(params.density0 * cx.blk("rest_volume")) * \
             cx.slab("p_rho2") * m_n * gw
-        f = [cx.where(pair_ok, c * R[d], 0.0) for d in range(3)]
-        arm = [cx.blk(f"pos{d}") - R[d] - cx.blk(f"com{d}") for d in range(3)]
-        tq = (arm[1] * f[2] - arm[2] * f[1], arm[2] * f[0] - arm[0] * f[2],
-              arm[0] * f[1] - arm[1] * f[0])
-        for d in range(3):
+        f = [cx.where(pair_ok, c * R[d], 0.0) for d in range(cx.dim)]
+        arm = [cx.blk(f"pos{d}") - R[d] - cx.blk(f"com{d}")
+               for d in range(cx.dim)]
+        if cx.dim == 3:
+            tq = (arm[1] * f[2] - arm[2] * f[1], arm[2] * f[0] - arm[0] * f[2],
+                  arm[0] * f[1] - arm[1] * f[0])
+        else:
+            tq = (arm[0] * f[1] - arm[1] * f[0],)
+        for d in range(cx.dim):
             out[f"fpp{d}"] = cx.sum(f[d], pair_ok)
-        for d in range(3):
-            out[f"tpp{d}"] = cx.sum(tq[d], pair_ok)
+        for d, t in enumerate(tq):
+            out[f"tpp{d}"] = cx.sum(t, pair_ok)
     return out
 
 
@@ -406,9 +413,31 @@ def rigid_contact_body(cx, params, flags=0):
     for c, tag in enumerate(contact_tags(params)):
         sel = touching & (chan == c)
         out[f"cw_{tag}"] = cx.sum(pen, sel)
-        for d in range(3):
+        for d in range(cx.dim):
             out[f"cn_{tag}{d}"] = cx.sum(pen * R[d] * inv_dist, sel)
     return out
+
+
+def rigid_dem_body(cx, params, flags=0):
+    """The kern of integrator.rigid_contact_wrench :64 (the shape-matching
+    backend's DEM contact): on a rigid row, the spring-damper force ``f``
+    from rigid neighbours of another object that touch (pen = d0 - |R| >
+    0), max(k pen - c k dt vn, 0) / |R| R."""
+    d0 = params.particle_diameter
+    R, d2, mask = cx.geometry()
+    dist = torch.sqrt(d2)
+    rigid_pair = (cx.blk("material") == MATERIAL_RIGID) & \
+        (cx.slab("material") == MATERIAL_RIGID) & \
+        (cx.blk("object_id") != cx.slab("object_id")) & mask
+    pen = d0 - dist
+    touching = rigid_pair & (pen > 0.0)
+    inv_dist = 1.0 / torch.clamp_min(dist, 1e-9)
+    vb, vs = cx.vec_blk("vel"), cx.vec_slab("vel")
+    vn = sum((vb[d] - vs[d]) * R[d] for d in range(cx.dim)) * inv_dist
+    fmag = params.contact_stiffness * pen - params.contact_damping * \
+        params.contact_stiffness * params.dt * vn
+    fmag = cx.where(touching, torch.clamp_min(fmag, 0.0) * inv_dist, 0.0)
+    return {f"f{d}": cx.sum(fmag * R[d], touching) for d in range(cx.dim)}
 
 
 def _w_r(r, params):
@@ -493,7 +522,7 @@ def contact_tags(params: SimParams) -> list:
     return list(_CHAN_TAGS[:n]) + ["st"]
 
 
-# output component -> its axis, for the components of vector outputs
+# output component -> the least dimension that has it
 _AXIS: Dict[str, int] = {}
 
 
@@ -501,8 +530,23 @@ def _vec(name):
     """The components name0..name2 of a vector output; a 2D launch has the
     first two."""
     comps = tuple(f"{name}{d}" for d in range(3))
-    _AXIS.update({c: d for d, c in enumerate(comps)})
+    _AXIS.update({c: d + 1 for d, c in enumerate(comps)})
     return comps
+
+
+def _torque(name):
+    """The components of a torque output: three in 3D, one (the scalar of
+    ``common.pair_cross``) in 2D."""
+    comps = tuple(f"{name}{d}" for d in range(3))
+    _AXIS.update({comps[1]: 3, comps[2]: 3})
+    return comps
+
+
+# the sums of A_ij of the implicit viscosity, a <= b: Axx, Axy, Axz, Ayy,
+# Ayz, Azz in 3D; Axx, Axy, Ayy in 2D
+_VISC_A = tuple(f"A{'xyz'[a]}{'xyz'[b]}" for a in range(3) for b in range(a, 3))
+_AXIS.update({k: 1 + max("xyz".index(k[1]), "xyz".index(k[2]))
+              for k in _VISC_A})
 
 
 _NONPRESSURE_FIELDS = ("pos", "vel", "material", "mass", "rest_volume",
@@ -546,8 +590,7 @@ BODIES = {
     # outputs per channel (contact_outputs); ``chan`` is a table per object
     "rigid_contact": (15, rigid_contact_body, (),
                       ("pos", "material", "object_id", "chan")),
-    "visc_prep": (16, visc_prep_body,
-                  ("Axx", "Axy", "Axz", "Ayy", "Ayz", "Azz") + _vec("br"),
+    "visc_prep": (16, visc_prep_body, _VISC_A + _vec("br"),
                   ("pos", "vel", "material", "mass", "density", "rest_volume",
                    "inv_rho")),
     "visc_matvec": (17, visc_matvec_body, _vec("acc"),
@@ -560,11 +603,10 @@ BODIES = {
                    ("pos", "material", "mass", "rest_volume", "density")),
     "pbf_fix": (20, pbf_fix_body, _vec("dx"),
                 ("pos", "material", "mass", "rest_volume", "lam")),
+    # shape matching's DEM contact, on the dynamic rigid rows
+    "rigid_dem": (21, rigid_dem_body, _vec("f"),
+                  ("pos", "vel", "material", "object_id")),
 }
-# the bodies of PBF's path, which the CUDA kernels run in 2D and 3D under
-# either kernel kind; the others run in 3D under the cubic spline
-KIND_BODIES = ("nonpressure", "rigid_volume", "pbf_density", "pbf_lambda",
-               "pbf_fix")
 KINDS = ("cubic", "poly6")
 # name -> (outputs a body adds under flags & RIGID, after its others; the
 #          fields they read besides the body's)
@@ -573,7 +615,8 @@ RIGID_OUTPUTS = {
     "correction": (_vec("fp"), ("is_dynamic",)),
     "density_alpha_divergence": (("svol",), ("object_id",)),
     "nonpressure_warm": (_vec("fpp") + _vec("wfp"), ("is_dynamic",)),
-    "pressure": (_vec("fpp") + _vec("tpp"), ("is_dynamic", "object_id", "com")),
+    "pressure": (_vec("fpp") + _torque("tpp"),
+                 ("is_dynamic", "object_id", "com")),
 }
 
 # engine -> (source in csrc/, its C entry point)
@@ -600,8 +643,7 @@ def params_key(engine: str, name: str, params: SimParams,
 launches = {launch_key(engine, name, flags, kind, dim): 0
             for engine in ENGINES for name in BODIES for flags in (0, RIGID)
             if not flags or name in RIGID_OUTPUTS
-            for kind in KINDS for dim in (3, 2)
-            if name in KIND_BODIES or (kind, dim) == ("cubic", 3)}
+            for kind in KINDS for dim in (3, 2)}
 
 
 def engine_of(env: PairEnv) -> str:
@@ -611,7 +653,8 @@ def engine_of(env: PairEnv) -> str:
 def contact_outputs(params: SimParams) -> tuple:
     """The outputs of ``rigid_contact``, channel by channel."""
     return tuple(k for tag in contact_tags(params)
-                 for k in (f"cw_{tag}",) + _vec(f"cn_{tag}"))
+                 for k in (f"cw_{tag}",) + _vec(f"cn_{tag}")
+                 if _AXIS.get(k, 0) <= params.dim)
 
 
 def out_names(name: str, params: SimParams, flags: int = 0) -> tuple:
@@ -622,7 +665,7 @@ def out_names(name: str, params: SimParams, flags: int = 0) -> tuple:
         names = names[:1]
     if flags & RIGID:
         names = names + RIGID_OUTPUTS[name][0]
-    return tuple(k for k in names if _AXIS.get(k, 0) < params.dim)
+    return tuple(k for k in names if _AXIS.get(k, 0) <= params.dim)
 
 
 def fields_of(name: str, flags: int = 0) -> tuple:
@@ -649,6 +692,9 @@ def body_constants(name: str, params: SimParams) -> list:
         c += [params.density0]
     if name == "rigid_contact":
         c += [params.particle_diameter]
+    if name == "rigid_dem":
+        c += [params.particle_diameter, params.contact_stiffness,
+              params.contact_damping * params.contact_stiffness * params.dt]
     if name in ("visc_prep", "visc_matvec"):
         d2c = 2.0 * (params.dim + 2)
         c += [0.01 * params.support_radius ** 2, -d2c * params.viscosity,
@@ -669,11 +715,11 @@ _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
                "inv_star2", "pred", "dii", "dij_pj", "x", "com", "chan",
                "starts", "lens", "out")
 # fields a body reads: (N, dim) vectors, i32 ids and flags, tables per object
-# (read through a row's object id; name -> trailing shape); every other one
-# (N,) f32
-_VECTORS = ("pos", "vel", "pred", "dii", "dij_pj", "x")
+# (read through a row's object id: (max_objects,), or (max_objects, dim) for
+# a vector); every other one (N,) f32
+_VECTORS = ("pos", "vel", "pred", "dii", "dij_pj", "x", "com")
 _INTS = ("material", "object_id", "is_dynamic", "chan")
-_TABLES = {"chan": (), "com": (3,)}
+_TABLES = ("chan", "com")
 N_CONST = 16
 N_KC = 6
 # PairArgs.kind
@@ -691,8 +737,8 @@ class PairArgs(ctypes.Structure):
                    ("kind", ctypes.c_int), ("kc", ctypes.c_float * N_KC)])
 
 
-def _lib(engine: str):
-    fn = getattr(_build.load(engine), ENGINES[engine])
+def _lib(engine: str, kind: str, dim: int):
+    fn = getattr(_build.load(engine, (kind, dim)), ENGINES[engine])
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -714,9 +760,6 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     if env.dim != dim:
         raise ValueError(f"pair kernel {name}: a {env.dim}D environment for "
                          f"{dim}D parameters")
-    if (kind, dim) != ("cubic", 3) and name not in KIND_BODIES:
-        raise ValueError(f"pair kernel {name}: runs in 3D with the cubic "
-                         f"kernel only, not {dim}D with {kind}")
     if engine == "pair_slab" and (not 0 < env.block <= SLAB_MAX_BLOCK
                                   or env.block % 32 or n % env.block):
         raise ValueError(
@@ -739,8 +782,8 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for key in needs:
         if key not in fields:
             raise ValueError(f"pair kernel {name}: missing field {key}")
-        shape = ((params.max_objects,) + _TABLES[key] if key in _TABLES
-                 else (n, dim) if key in _VECTORS else (n,))
+        rows = params.max_objects if key in _TABLES else n
+        shape = (rows, dim) if key in _VECTORS else (rows,)
         ptr(key, fields[key],
             torch.int32 if key in _INTS else torch.float32, shape)
     ptr("cells", env.cells, torch.int32, (n,))
@@ -767,7 +810,7 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for k, v in enumerate(kernels.kind_constants(params.support_radius, dim)):
         args.kc[k] = v
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib(engine)(body_id, ctypes.addressof(args), stream)
+    err = _lib(engine, kind, dim)(body_id, ctypes.addressof(args), stream)
     if err != 0:
         raise RuntimeError(
             f"{engine} kernel {name}: launch failed, CUDA error {err}")
@@ -787,15 +830,16 @@ def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
         if k in fk:
             obj = fields["object_id"]
             rows = fk[k][obj.clamp(0, params.max_objects - 1).long()]
-            valid = (obj >= 0).view((-1,) + (1,) * len(_TABLES[k]))
+            valid = (obj >= 0).view((-1,) + (1,) * (rows.dim() - 1))
             fk[k] = torch.where(valid, rows, -1 if k in _INTS else 0.0)
     executor = run_plain_slab if isinstance(env, SlabEnv) else run_plain
     return executor(lambda cx: body(cx, params, flags), env, fk,
                     out_names(name, params, flags), produce=produce)
 
 
-# the dynamic bodies of pile_up_case, as contact channels
+# the dynamic bodies of pile_up_case and pile_up_case_2d, as contact channels
 PILE_UP_CHANNELS = (0, 1)
+PILE_UP_CHANNELS_2D = (0,)
 
 
 def pile_up_case(pair_block: int = 256, seed: int = 0):
@@ -880,10 +924,11 @@ def pile_up_case_2d(pair_block: int = 256, seed: int = 0):
     candidates (three cells of 144) crosses several of the tiles either
     kernel stages; a few particles sit in the opposite corner cell, in an
     edge cell and alone. A fifth of the rows are rigid (object 0 dynamic,
-    object 1 static), the rest fluid; the tail up to ``n_pad`` is
-    ``MATERIAL_NONE`` rows with the sentinel cell id. Returns ``(params,
-    cells, produce, fields)`` on the CPU, with the fields of the bodies on
-    PBF's path."""
+    with a body com, object 1 static), the rest fluid; the tail up to
+    ``n_pad`` is ``MATERIAL_NONE`` rows with the sentinel cell id. Returns
+    ``(params, cells, produce, fields)`` on the CPU, with the fields of
+    every body (the ``chan`` table gives object 0 the channel of
+    ``contact_channels=(0,)`` and object 1 the static one)."""
     h = 1.0
     gen = torch.Generator().manual_seed(seed)
 
@@ -919,9 +964,24 @@ def pile_up_case_2d(pair_block: int = 256, seed: int = 0):
               "object_id": obj, "lam": (rand(n) - 0.5) * 2e-3,
               "is_dynamic": ((material == MATERIAL_FLUID) | (obj < 1)).to(
                   torch.int32)}
+    # the fields of the other bodies, as pile_up_case's
+    kappa = -50.0 + 250.0 * rand(n)
+    pressure = 5000.0 * rand(n)
+    fields.update(
+        kappa=kappa, k_rho=kappa / density, pressure=pressure,
+        p_rho2=pressure / (density * density),
+        dpi=params.density0 * fields["rest_volume"] / (density * density),
+        inv_star2=1.0 / (density * density),
+        pred=pos + (rand(n, 2) - 0.5) * (0.2 * h / 12),
+        dii=(rand(n, 2) - 0.5) * 0.02, dij_pj=(rand(n, 2) - 0.5) * 20.0,
+        x=rand(n, 2) - 0.5)
     cells = neighbors.flat_cell_ids(pos, material != MATERIAL_NONE, params)
     perm = neighbors.sort_permutation(cells)
     fields = {k: v[perm].contiguous() for k, v in fields.items()}
+    fields["chan"] = torch.full((params.max_objects,), -1, dtype=torch.int32)
+    fields["chan"][:2] = torch.tensor([0, 1], dtype=torch.int32)
+    fields["com"] = torch.zeros(params.max_objects, 2)
+    fields["com"][0] = torch.tensor([1.5 * h, 1.5 * h])
     return (params, cells[perm].contiguous(),
             fields["material"] == MATERIAL_FLUID, fields)
 
@@ -931,7 +991,7 @@ def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
         flags: int = 0) -> Dict[str, torch.Tensor]:
     """One pair pass under ``env``'s engine: its CUDA kernel for CUDA
     tensors, its plain version for CPU tensors. Returns per-row outputs,
-    vectors merged to (N, 3)."""
+    vectors merged to (N, dim)."""
     kind = env.cells.device.type
     if kind == "cuda":
         out = run_cuda(name, env, fields, params, produce, flags)

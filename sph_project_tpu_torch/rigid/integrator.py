@@ -10,8 +10,10 @@ the walls are a projection and a velocity clamp on each body's particle
 extent. Everything stays on the device: nothing here reads a value on the
 host, and the loop over ``contact_iters`` sweeps is over a parameter.
 
-3D only, as the port's pair engines are. The shape-matching backend and its
-DEM contact wrench are not ported (ROADMAP Queue A.11b).
+In 2D a body turns in the plane: its angular velocity and torque are (O, 1)
+and every cross product is ``common.pair_cross``'s scalar. The
+shape-matching backend's DEM contact wrench (:func:`rigid_contact_wrench`)
+is here too; its step is ``rigid/shape_matching.py``.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from ..core.params import MATERIAL_RIGID, SimParams
 from ..core.state import ParticleState, RigidState, constant
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
-from ..solvers.common import (cross, matmul, matvec, object_gather,
-                              object_index, object_reduce)
+from ..solvers.common import (matmul, matvec, object_gather, object_index,
+                              object_reduce, pair_cross, reduce_wrench)
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -73,12 +75,29 @@ def channel_table(rigid: RigidState, params: SimParams) -> torch.Tensor:
                        chan).contiguous()
 
 
+def rigid_contact_wrench(p: ParticleState, rigid: RigidState, env: PairEnv,
+                         params: SimParams):
+    """The DEM contact between different rigid bodies of the shape-matching
+    backend (:47): per dynamic rigid particle the spring-damper force of the
+    ``rigid_dem`` pair pass, its torque about the body's com, both summed
+    per body. Returns (force (O, dim), torque (O, 3) or (O, 1))."""
+    force_pp = pair_kernels.run(
+        "rigid_dem", env,
+        {"pos": p.pos, "vel": p.vel, "material": p.material,
+         "object_id": p.object_id},
+        params, produce=dynamic_rigid_mask(p, rigid, params))["f"]
+    com_i = object_gather({"com": rigid.com},
+                          object_index(p, params))["com"]
+    torque_pp = pair_cross(p.pos - com_i, force_pp, params.dim)
+    return reduce_wrench(force_pp, torque_pp, p, params)
+
+
 def rigid_contact_data(p: ParticleState, rigid: RigidState, env: PairEnv,
                        params: SimParams) -> dict:
     """Per-particle, per-channel contact sums between rigid bodies (:106):
     on every particle of a dynamic body, for each channel, the
     penetration-weighted weight ``cw_<tag>`` (N,) and normal ``cn_<tag>``
-    (N, 3) over the neighbours of that channel's body (or of any static
+    (N, dim) over the neighbours of that channel's body (or of any static
     geometry) within one particle diameter. One pair pass, produced only on
     the dynamic-rigid rows."""
     return pair_kernels.run(
@@ -95,18 +114,20 @@ EXTENT_SLOTS = 1024
 
 
 def _extents(x: torch.Tensor, seg: torch.Tensor, O: int):
-    """(O, 3) least and greatest of the rows of ``x`` per segment in [0, O],
+    """(O, dim) least and greatest of the rows of ``x`` per segment in [0, O],
     the empty ones at +-1e9; segment O takes the rows of no body."""
     big = 1e9
+    dim = x.shape[1]
     slot = (seg * EXTENT_SLOTS + torch.arange(
-        seg.shape[0], device=seg.device) % EXTENT_SLOTS)[:, None].expand(-1, 3)
-    shape = ((O + 1) * EXTENT_SLOTS, 3)
+        seg.shape[0], device=seg.device) % EXTENT_SLOTS)[:, None].expand(
+            -1, dim)
+    shape = ((O + 1) * EXTENT_SLOTS, dim)
     lo = torch.full(shape, big, device=x.device).scatter_reduce(
         0, slot, x, "amin")
     hi = torch.full(shape, -big, device=x.device).scatter_reduce(
         0, slot, x, "amax")
-    return (lo.view(O + 1, EXTENT_SLOTS, 3).amin(1)[:O],
-            hi.view(O + 1, EXTENT_SLOTS, 3).amax(1)[:O])
+    return (lo.view(O + 1, EXTENT_SLOTS, dim).amin(1)[:O],
+            hi.view(O + 1, EXTENT_SLOTS, dim).amax(1)[:O])
 
 
 def _to_bodies(onehot: torch.Tensor, vals: torch.Tensor,
@@ -128,6 +149,7 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
     mass-split positional de-penetration. Dynamic-dynamic pairs appear twice,
     so impulses apply at half strength. Returns (vel, omega, d_com)."""
     O = params.max_objects
+    dim = params.dim
     tags = pair_kernels.contact_tags(params)
     C = len(tags)
     dev = vel.device
@@ -140,8 +162,8 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
         packed[f"c_{tag}"] = (w_c > 1e-12).to(torch.float32)
     red = object_reduce(packed, object_index(p, params), O)
     W = torch.stack([red[f"w_{t}"] for t in tags], -1).reshape(O * C)
-    N = torch.stack([red[f"n_{t}"] for t in tags], 1).reshape(O * C, 3)
-    Pt = torch.stack([red[f"p_{t}"] for t in tags], 1).reshape(O * C, 3)
+    N = torch.stack([red[f"n_{t}"] for t in tags], 1).reshape(O * C, dim)
+    Pt = torch.stack([red[f"p_{t}"] for t in tags], 1).reshape(O * C, dim)
     cnt = torch.stack([red[f"c_{t}"] for t in tags], -1).reshape(O * C)
 
     active = W > 1e-12
@@ -171,8 +193,8 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
 
     r_a = point - rigid.com[ia]
     r_b = point - rigid.com[ib]
-    ra_x_n = cross(r_a, n_hat)
-    rb_x_n = cross(r_b, n_hat)
+    ra_x_n = pair_cross(r_a, n_hat, dim)
+    rb_x_n = pair_cross(r_b, n_hat, dim)
     K = inv_ma + inv_mb + torch.sum(ra_x_n * ra_x_n, -1) * inv_Ia + \
         torch.sum(rb_x_n * rb_x_n, -1) * inv_Ib
     ok = active & (K > 1e-12)
@@ -182,7 +204,10 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
     onehot_b = (ib[:, None] == torch.arange(O, device=dev)).to(torch.float32)
 
     def point_vel(v, om, idx, r):
-        return v[idx] + cross(om[idx], r)
+        if dim == 3:
+            return v[idx] + pair_cross(om[idx], r, dim)
+        w = om[idx][:, 0]
+        return v[idx] + torch.stack([-w * r[:, 1], w * r[:, 0]], -1)
 
     jn_acc = torch.zeros_like(W)
     for _ in range(max(params.contact_iters, 1)):
@@ -200,16 +225,16 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
         vt = vrel - vn[:, None] * n_hat
         vt_len = _norm(vt)
         t_hat = vt / torch.clamp_min(vt_len, 1e-9)[:, None]
-        ra_x_t = cross(r_a, t_hat)
-        rb_x_t = cross(r_b, t_hat)
+        ra_x_t = pair_cross(r_a, t_hat, dim)
+        rb_x_t = pair_cross(r_b, t_hat, dim)
         Kt = inv_ma + inv_mb + torch.sum(ra_x_t * ra_x_t, -1) * inv_Ia + \
             torch.sum(rb_x_t * rb_x_t, -1) * inv_Ib
         jt = torch.where(ok & (Kt > 1e-12),
                          0.5 * vt_len / torch.clamp_min(Kt, 1e-12), zero)
         jt = torch.minimum(jt, mu * jn_acc)
         imp = j[:, None] * n_hat - jt[:, None] * t_hat
-        dwa = inv_Ia[:, None] * cross(r_a, imp)
-        dwb = (-inv_Ib[:, None]) * cross(r_b, imp)
+        dwa = inv_Ia[:, None] * pair_cross(r_a, imp, dim)
+        dwb = (-inv_Ib[:, None]) * pair_cross(r_b, imp, dim)
         vel = vel + _to_bodies(onehot_a, imp * inv_ma[:, None], ok) \
             + _to_bodies(onehot_b, -imp * inv_mb[:, None], ok)
         omega = omega + _to_bodies(onehot_a, dwa, ok) \
@@ -242,7 +267,14 @@ def rigid_body_step(p: ParticleState, rigid: RigidState, params: SimParams,
         vel, omega, d_com = resolve_body_contacts(p, rigid, vel, omega,
                                                   contact, params)
     com = rigid.com + dt * vel + d_com
-    rot = matmul(_rodrigues(omega, dt), rigid.rot)
+    if params.dim == 3:
+        rot = matmul(_rodrigues(omega, dt), rigid.rot)
+    else:
+        th = omega[:, 0] * dt
+        c, s = torch.cos(th), torch.sin(th)
+        drot = torch.stack([torch.stack([c, -s], -1),
+                            torch.stack([s, c], -1)], -2)
+        rot = matmul(drot, rigid.rot)
 
     # walls: the reference's Bullet walls, inset by eps from the domain
     eps = params.padding + params.particle_diameter + params.wall_thickness

@@ -6,10 +6,7 @@ the particle arrays come out bit for bit the same. Left out:
 - the TPU pair engines' window-cap estimators (``estimate_slab_sizes``,
   ``estimate_su``): the port's cell-list engine has no caps;
 - the switch that turns the TPU sort kernel off for a large deferred entry
-  (JAX ``scene.py`` :289-296): the port's gather permutes every row;
-- the shape-matching rigid solver (``rigid_solver="shape_matching"`` with
-  dynamic bodies): the port does not run it yet, and a scene that selects it
-  raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+  (JAX ``scene.py`` :289-296): the port's gather permutes every row.
 
 Objects with an ``entryTime`` above 0 are packed as ``MATERIAL_NONE`` rows
 with their entry time and material beside them (the step activates them,
@@ -44,10 +41,6 @@ ASSET_ROOT = os.environ.get("SPH_ASSET_ROOT", "")
 # first-party procedural stand-ins for the reference's binary mesh assets
 BUILTIN_MODELS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "models_builtin")
-
-_SHAPE_MATCHING = ("the shape-matching rigid solver is not ported yet "
-                   "(ROADMAP Queue A.11b, shape matching)")
-
 
 def _resolve_path(path: str) -> str:
     if os.path.exists(path):
@@ -85,12 +78,6 @@ class Scene:
     rigid_object_ids: List[int] = field(default_factory=list)
 
 
-def _check_supported(cfg: SimConfig, rigid_solver: str) -> None:
-    if rigid_solver == "shape_matching" and any(
-            bool(b.get("isDynamic", False)) for b in cfg.get_rigid_bodies()):
-        raise NotImplementedError(_SHAPE_MATCHING)
-
-
 def _euler_or_axis_rotation(body: dict, dynamic: bool) -> np.ndarray:
     angle = float(body.get("rotationAngle", 0.0)) / 360.0 * 2.0 * math.pi
     axis = np.asarray(body.get("rotationAxis", [0, 1, 0]), np.float64)
@@ -106,8 +93,6 @@ def load_scene(scene_file: str | None = None, config: SimConfig | None = None,
     """Build params + fully-seeded initial state (on the CPU) from a scene
     JSON. Returns ``(scene, state)``."""
     cfg = config if config is not None else SimConfig(scene_file)
-    _check_supported(cfg, param_overrides.get(
-        "rigid_solver", cfg.get_cfg("rigidSolver") or "integrator"))
 
     dim = len(cfg.get_cfg("domainEnd"))
     dx = cfg.get_cfg("particleRadius") or 0.01

@@ -1,10 +1,10 @@
 """Simulation orchestration: the per-step sort, prepare, the step, the driver.
 
 The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH,
-IISPH and PBF, with standard or implicit viscosity (PBF: standard), over
-fluid, static walls, dynamic rigid bodies with the integrator backend,
-deferred entries and emitters, in 3D, and PBF also in 2D (line numbers name
-its functions). PyTorch runs eagerly,
+IISPH and PBF, with standard or implicit viscosity, under the cubic spline
+or the poly6 kernel, in 3D and 2D, over fluid, static walls, dynamic rigid
+bodies with the integrator or the shape-matching backend, deferred entries
+and emitters (line numbers name its functions). PyTorch runs eagerly,
 so there is no jit and no scan: ``step`` runs one step and ``run`` loops over
 it. Every tensor of the state lives on the simulation's device, and the
 device defaults to ``"cuda"``; on a host without CUDA, ask for
@@ -23,6 +23,7 @@ from .ops import neighbors as nblib
 from .ops import pairs
 from .ops import permute as permlib
 from .rigid import integrator as rigidlib
+from .rigid import shape_matching as smlib
 from .solvers import common
 
 
@@ -36,19 +37,6 @@ def _check_ported(params: SimParams) -> None:
         raise NotImplementedError(f"simulation method {method} is unknown")
     if params.viscosity_method not in ("standard", "implicit"):
         raise NotImplementedError(params.viscosity_method)
-    if method != "pbf" and (params.dim != 3 or params.kernel_type != "cubic"):
-        raise NotImplementedError(
-            f"{method} in {params.dim}D with the {params.kernel_type} kernel "
-            "is not ported yet: 2D and poly6 run under PBF only (ROADMAP "
-            "Queue A.9c)")
-    if method == "pbf" and params.viscosity_method == "implicit":
-        raise NotImplementedError(
-            "PBF with implicit viscosity is not ported yet (ROADMAP Queue "
-            "A.9c)")
-    if params.has_dynamic_rigid and params.rigid_solver != "integrator":
-        raise NotImplementedError(
-            f"rigid_solver={params.rigid_solver!r} is not ported yet "
-            "(ROADMAP Queue A.11b, shape matching)")
 
 
 def permuted_keys(params: SimParams) -> tuple:
@@ -167,15 +155,24 @@ class Plumbing:
     @staticmethod
     def rigid_mid(state: SimState, env: pairs.PairEnv,
                   params: SimParams) -> SimState:
-        """Rigid dynamics mid-step (:295, integrator backend): the contact
-        pass over the dynamic bodies' particles on ``env`` (whose sort their
-        positions still match), the body step, which consumes the
-        accumulated wrench, the entries whose time has come (every step,
-        under every method), then the particles placed at their bodies' new
-        poses."""
+        """Rigid dynamics mid-step (:295), over the dynamic bodies'
+        particles on ``env`` (whose sort their positions still match), then
+        the entries whose time has come (every step, under every method).
+        The integrator backend: the contact pass, the body step, which
+        consumes the accumulated wrench, then the particles placed at their
+        bodies' new poses. The shape-matching backend: the DEM contact
+        wrench added to the accumulated one, then the projection, which
+        places the particles itself."""
         if not params.has_dynamic_rigid:
             return Plumbing.activate_entries(state, params)
         p, rigid = state.particles, state.rigid
+        if params.rigid_solver == "shape_matching":
+            cf, ct = rigidlib.rigid_contact_wrench(p, rigid, env, params)
+            rigid = rigid.replace(force=rigid.force + cf,
+                                  torque=rigid.torque + ct)
+            p, rigid = smlib.shape_matching_step(p, rigid, params)
+            return Plumbing.activate_entries(
+                state.replace(particles=p, rigid=rigid), params)
         contact = (rigidlib.rigid_contact_data(p, rigid, env, params)
                    if params.contact_channels else None)
         rigid = rigidlib.rigid_body_step(p, rigid, params, contact=contact)

@@ -11,9 +11,9 @@ fluid rows only, the only rows whose results the solve keeps (:100-104,
 
 The JAX CG is a ``lax.while_loop`` on the device; here the loop runs on the
 host and reads the residual once per iteration, as the port's PCISPH and
-IISPH loops do. The per-row 3x3 inverse is written out as cofactors over the
-determinant and every 3x3 product as sums of products, so no matrix product
-(and no TF32) touches the solve.
+IISPH loops do. The per-row inverse (3x3, or 2x2 in 2D) is written out as
+cofactors over the determinant and every small matrix product as sums of
+products, so no matrix product (and no TF32) touches the solve.
 """
 from __future__ import annotations
 
@@ -50,6 +50,17 @@ def inverse3(m: torch.Tensor) -> torch.Tensor:
                        -2)
 
 
+def inverse2(m: torch.Tensor) -> torch.Tensor:
+    """Inverses of (..., 2, 2) matrices: cofactors over the determinant,
+    elementwise."""
+    m00, m01 = m[..., 0, 0], m[..., 0, 1]
+    m10, m11 = m[..., 1, 0], m[..., 1, 1]
+    det = m00 * m11 - m01 * m10
+    rows = ((m11, -m01), (-m10, m00))
+    return torch.stack([torch.stack([c / det for c in r], -1) for r in rows],
+                       -2)
+
+
 def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
                              state: SimState, env: PairEnv,
                              params: SimParams):
@@ -59,6 +70,7 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
     surface tension does not depend on velocity. Returns (p, rigid, state
     with the new ``visc_x``)."""
     dev = p.pos.device
+    dim = params.dim
     fluid = p.material == MATERIAL_FLUID
     fmask = fluid[:, None]
     dt_rho = params.dt / params.density0
@@ -69,14 +81,15 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
 
     # the preconditioner D_i and the rhs b in one pass (:95-105)
     prep = pair_kernels.run("visc_prep", env, fields, params, produce=fluid)
-    a = [[None] * 3 for _ in range(3)]
+    a = [[None] * dim for _ in range(dim)]
     ax = "xyz"
-    for i in range(3):
-        for j in range(i, 3):
+    for i in range(dim):
+        for j in range(i, dim):
             a[i][j] = a[j][i] = prep[f"A{ax[i]}{ax[j]}"]
     a_sum = torch.stack([torch.stack(r, -1) for r in a], -2)
-    eye = torch.eye(3, dtype=torch.float32, device=dev)[None]
-    dinv = torch.where(fmask[..., None], inverse3(eye + dt_rho * a_sum), eye)
+    eye = torch.eye(dim, dtype=torch.float32, device=dev)[None]
+    inverse = inverse3 if dim == 3 else inverse2
+    dinv = torch.where(fmask[..., None], inverse(eye + dt_rho * a_sum), eye)
     b = torch.where(fmask, p.vel - params.dt * prep["br"] / params.density0,
                     zero)
     mv_fields = {k: fields[k] for k in pair_kernels.fields_of("visc_matvec")

@@ -50,20 +50,25 @@ def test_port_imports_no_jax_warm_slab():
 
 
 # the same on a small scene with a dynamic body (cube falling into a pool in
-# the domain box): the integrator, the contact pass and the wrenches run
+# the domain box): the integrator, the contact pass and the wrenches run;
+# then the same scene under the shape-matching backend (its DEM pass and
+# its projection)
 _PROBE_RIGID = """
 import sys
 from sph_project_tpu_torch.scene import load_scene
 from sph_project_tpu_torch.sim import Simulation
 from sph_project_tpu_torch.utils.config import SimConfig
-scene, state = load_scene(config=SimConfig(config=%r))
-assert scene.params.has_dynamic_rigid and scene.params.contact_channels
-sim = Simulation(scene, state, device="cpu")
-assert type(sim.state.cached_neighbors).__name__ == "PairEnv"
-com0 = sim.state.rigid.com[1].clone()
-diag = sim.step()
-assert not bool((sim.state.rigid.com[1] == com0).all())
+for solver in ("integrator", "shape_matching"):
+    scene, state = load_scene(config=SimConfig(config=%r),
+                              rigid_solver=solver)
+    assert scene.params.has_dynamic_rigid and scene.params.contact_channels
+    sim = Simulation(scene, state, device="cpu")
+    assert type(sim.state.cached_neighbors).__name__ == "PairEnv"
+    com0 = sim.state.rigid.com[1].clone()
+    diag = sim.step()
+    assert not bool((sim.state.rigid.com[1] == com0).all())
 assert "sph_project_tpu_torch.rigid.integrator" in sys.modules
+assert "sph_project_tpu_torch.rigid.shape_matching" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
 print("FOREIGN", bad)
@@ -103,25 +108,33 @@ def test_port_imports_no_jax_rigid(tmp_path):
     assert "FOREIGN []" in out.stdout, out.stdout
 
 
-# (the ids name the features the cases probed when they were written:
-# implicit viscosity runs since A.10 and PBF since A.9b; PBF with implicit
-# viscosity and a 2D scene under another method still raise)
-@pytest.mark.parametrize("scene,overrides,item", [
+# (the ids name the features the cases probed when they were written: they
+# raised until the port ran them; PBF with implicit viscosity, DFSPH in 2D
+# under poly6 with implicit viscosity, and the shape-matching backend on a
+# shipped coupled scene now run)
+@pytest.mark.parametrize("scene,overrides", [
     ("smoke_test.json", dict(simulation_method="pbf",
-                             viscosity_method="implicit"), "A.9c"),
+                             viscosity_method="implicit")),
     ("pbf_2d.json", dict(simulation_method="dfsph",
-                         viscosity_method="implicit"), "A.9c"),
-    ("dragon_bath_wcsph.json", dict(rigid_solver="shape_matching"), "A.11b"),
+                         viscosity_method="implicit")),
+    ("dragon_bath_wcsph.json", dict(rigid_solver="shape_matching")),
 ], ids=["pbf", "implicit_viscosity", "dynamic_rigid"])
-def test_unported_features_raise(scene, overrides, item):
-    """What the port does not run yet raises, naming its ROADMAP item, when
-    the scene is loaded or the simulation built, before any step."""
+def test_unported_features_raise(scene, overrides):
+    """What the port once refused loads, builds on the CPU and steps: the
+    scene with its overrides, one step with finite positions and the
+    diagnostics of the JAX package's keys."""
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.sim import Simulation
-    with pytest.raises(NotImplementedError, match=item):
-        sc, st = load_scene(os.path.join(ROOT, "data", "scenes", scene),
-                            **overrides)
-        Simulation(sc, st, device="cpu")
+    sc, st = load_scene(os.path.join(ROOT, "data", "scenes", scene),
+                        **overrides)
+    for k, v in overrides.items():
+        assert getattr(sc.params, k) == v
+    sim = Simulation(sc, st, device="cpu")
+    diag = sim.step()
+    p = sim.state.particles
+    assert bool(torch.isfinite(p.pos).all())
+    assert int(diag["neighbor_overflow"]) == 0 and int(diag["fluid_num"]) > 0
+    assert int(sim.state.step_count) == 1
 
 
 # an implicit-viscosity emitter: a fluid column falling through the emitter

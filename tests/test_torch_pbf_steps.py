@@ -82,12 +82,12 @@ def test_smoke_scene_steps():
 def test_emitter_column_steps():
     """tests/test_torch_emitter.py's emitter column (a fluid column falling
     at 2 m/s through the emitter height 0.2 in the domain box) under a PBF
-    override with standard viscosity (an emitter scene with implicit
-    viscosity raises under PBF: A.9c): the placeholders advect and turn fluid
-    through the PBF step. Ten steps with the fluid count equal at every step
-    and growing, the first step's mean density equal (measured 2e-7
-    relative) and its fluid within 1e-3 (measured 6.8e-5: the fluid reaches
-    the speed cap, 200 m/s, in this first step)."""
+    override with standard viscosity (PBF with implicit viscosity:
+    tests/test_torch_kinds_steps_pbf_implicit.py): the placeholders advect
+    and turn fluid through the PBF step. Ten steps with the fluid count
+    equal at every step and growing, the first step's mean density equal
+    (measured 2e-7 relative) and its fluid within 1e-3 (measured 6.8e-5: the
+    fluid reaches the speed cap, 200 m/s, in this first step)."""
     from test_torch_emitter import column_config
     params, out = run_against_jax(column_config("standard"), 10,
                                   simulation_method="pbf")

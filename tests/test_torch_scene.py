@@ -1,8 +1,8 @@
 """The port's scene loader and state bridge against the JAX package.
 
 The same scene JSON must give bit-equal particle and rigid arrays in both
-packages, the bridge must carry a state across row for row, and scenes the
-port cannot run yet must raise NotImplementedError.
+packages (all 17 files in data/scenes/), the bridge must carry a state
+across row for row, and the scenes the port once refused load and step.
 """
 import dataclasses
 import os
@@ -122,11 +122,19 @@ _VISCOUS_SCENES = ("high_viscosity_implicit.json",
                    "buckling_emitter_small.json", "coiling_emitter_small.json")
 
 
-# pbf_2d (2D, poly6) and pbf_3d: the PBF scenes
+# pbf_2d (2D, poly6) and pbf_3d: the PBF scenes; the full-size ones, loaded
+# in 5-13 s each: the flagship (1,972,224 slots), the other three
+# dragon_bath methods, and the two emitter scenes (2,288,640 and 1,948,672)
+_FULL_SIZE_SCENES = ("large_scale_dfsph.json", "dragon_bath_wcsph.json",
+                     "dragon_bath_pcisph.json", "dragon_bath_iisph.json",
+                     "buckling_emitter.json", "coiling_emitter.json")
+
+
 @pytest.mark.parametrize("name", ["smoke_test.json", "dam_break_demo.json",
                                   "high_viscosity_bunny.json", "box",
                                   *_DYNAMIC_SCENES, *_VISCOUS_SCENES,
-                                  "pbf_2d.json", "pbf_3d.json"])
+                                  "pbf_2d.json", "pbf_3d.json",
+                                  *_FULL_SIZE_SCENES])
 def test_load_scene_bit_equal(name, tmp_path):
     if name == "box":
         config = box_config()
@@ -148,13 +156,13 @@ def test_load_scene_bit_equal(name, tmp_path):
             assert jp[k] == tp[k], k
     assert [o.particle_num for o in js.objects] == \
         [o.particle_num for o in ts.objects]
-    if name in _DYNAMIC_SCENES:
+    if name in _DYNAMIC_SCENES or name.startswith("dragon_bath"):
         assert ts.params.has_dynamic_rigid and ts.params.contact_channels
         assert callable(tsim.get_step_fn(ts.params))   # the step is ported
         dyn = (b["particles.is_dynamic"] > 0) & (b["particles.material"] == 2)
         assert dyn.sum() > 0 and (b["rigid.mass"][
             list(ts.params.contact_channels)] > 0).all()
-    if name in _VISCOUS_SCENES:
+    if name in _VISCOUS_SCENES or "emitter" in name:
         assert ts.params.viscosity_method == "implicit"
         assert ts.params.has_entries == ("emitter" in name)
         assert callable(tsim.get_step_fn(ts.params))   # the step is ported
@@ -201,18 +209,31 @@ def test_bridge_rejects_wrong_size():
         bridge.state_from_numpy(flat, ts.params)
 
 
-# dynamic rigid bodies load, and under the shape-matching solver (A.11b) they
-# raise; emitters load and step, and under PBF with their implicit viscosity
-# (A.9c) the scene raises when its step is built (the ids name the queue
-# items the scenes waited on when these cases were written)
-@pytest.mark.parametrize("name,item", [
-    pytest.param("coupling_dfsph.json", "A.11b", id="coupling_dfsph.json-A.11"),
-    pytest.param("buckling_emitter_small.json", "A.9c",
+# dynamic rigid bodies under the shape-matching solver (A.11b) and an emitter
+# scene under PBF with its implicit viscosity (A.9c) raised until the port
+# ran them; they now load, build on the CPU and take a step (the ids name
+# the queue items the scenes waited on when these cases were written)
+@pytest.mark.parametrize("name", [
+    pytest.param("coupling_dfsph.json", id="coupling_dfsph.json-A.11"),
+    pytest.param("buckling_emitter_small.json",
                  id="buckling_emitter_small.json-A.12")])
-def test_unported_scenes_raise(name, item):
+def test_unported_scenes_raise(name):
     overrides = {"coupling_dfsph.json": dict(rigid_solver="shape_matching"),
                  "buckling_emitter_small.json": dict(simulation_method="pbf")}
-    with pytest.raises(NotImplementedError, match=item):
-        scene, _ = torch_load_scene(os.path.join(SCENES, name),
+    scene, state = torch_load_scene(os.path.join(SCENES, name),
                                     **overrides[name])
-        tsim.get_step_fn(scene.params)
+    params = scene.params
+    for k, v in overrides[name].items():
+        assert getattr(params, k) == v
+    sim = tsim.Simulation(scene, state, device="cpu")
+    diag = sim.step()
+    p = sim.state.particles
+    assert bool(torch.isfinite(p.pos).all()) and int(diag["fluid_num"]) > 0
+    if name == "coupling_dfsph.json":
+        # the shape-matching projection moved the dynamic bodies
+        assert params.has_dynamic_rigid
+        bodies = list(params.contact_channels)
+        assert not torch.equal(sim.state.rigid.com[bodies],
+                               state.rigid.com[bodies])
+    else:
+        assert params.viscosity_method == "implicit" and params.has_entries
