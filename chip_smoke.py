@@ -136,8 +136,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    measured there and the host synchronizations of one projection
    printed; then every body, rigid variant, contact and DEM pass of both
    kernels on the pile-ups of each new kind and dimension;
-9. one JSON line with every kernel record (its launches count phases 6's
-   and 8's runs too), the card line again, then the result.
+9. the spatial decomposition (``parallel/spatial.py``): at world size 1
+   over NCCL in this process, the flagship cold under DFSPH, 3 decomposed
+   steps through each pair kernel beside 3 single-device steps (sorted fluid
+   positions bit-equal, iteration counts equal, overflow 0); both kernels
+   on the extended layout (H sentinel rows at each end: -1 in front,
+   ``num_cells`` at the back) against their plain versions, counts exact,
+   and against each other; the gather's resort pack and unpack, as rank 1
+   of 4 takes them, bit-equal to ``index_select`` (the unpack gives the
+   rank's slice of the sorted state), timed against their bound; then 4
+   ranks spawned on the one card over gloo (``parallel/launch.py``), the
+   flagship, ``dragon_bath_dfsph.json`` and
+   ``high_viscosity_implicit.json`` 3 steps each through the cell-list
+   kernel, held to this process's single-device runs (fluid and body com
+   bit-equal, body velocities within 1e-6, iteration and CG counts equal,
+   no shortfall on any rank); the H, shortfall, backend, wall ms and
+   launches of each run;
+10. one JSON line with every kernel record (its launches count phases 6's,
+   8's and 9's runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -147,6 +163,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -503,6 +520,51 @@ def instruction_rate() -> float:
 
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def work_of_rows(env, params, fields, produce):
+    """(candidates tested, pairs inside the radius) over these rows, the
+    candidates counted from the engine's own table: a row's 9 runs of the
+    cell table, or its 9 pieces of its block's windows."""
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.ops import pairs
+    rows = torch.nonzero(produce).flatten()
+    slab = pk.engine_of(env) == "pair_slab"
+    ranges = pairs.window_pieces if slab else pairs.candidate_ranges
+    cand = int(ranges(env, rows)[1].sum())
+    cnt = pk.run_cuda("divergence", env, fields, params, produce,
+                      flags=1)["cnt"]
+    return cand, int(cnt.sum().item())
+
+
+def rows_read(env, params, fields, produce) -> int:
+    """The rows whose fields a pass over these producing rows needs: the
+    rows themselves and every row within the radius of one. A pair is
+    symmetric, so these are the rows that produce or have a producing
+    neighbour: one plain pass over all rows, through the cell-list
+    executor (the pairs of both engines are the same)."""
+    from sph_project_tpu_torch.core.params import MATERIAL_NONE
+    from sph_project_tpu_torch.ops import pairs
+    cell_env = pairs.make_pair_env(env.cells, env.produce, params)
+    comps = {"pos": fields["pos"], "mark": produce.to(torch.float32)}
+
+    def body(cx):
+        _, _, mask = cx.geometry()
+        return {"n": cx.sum(cx.slab("mark"), mask)}
+
+    out = pairs.run_plain(body, cell_env, comps, ("n",),
+                          produce=fields["material"] != MATERIAL_NONE)
+    return int((produce | (out["n"] > 0)).sum().item())
+
+
+def pass_bytes(fk, read, table, n_out, n) -> int:
+    """Bytes a pass must move at the least, each once: its per-row fields
+    on the ``read`` rows it needs, its per-object tables, the engine's
+    table, the produce mask and its (n_out, n) outputs."""
+    fields = sum(t.numel() * t.element_size() // t.shape[0] * read
+                 if t.shape[0] == n else t.numel() * t.element_size()
+                 for t in fk.values())
+    return fields + nbytes(table) + n * 1 + n_out * n * 4
 
 
 def small_box_config() -> dict:
@@ -975,6 +1037,353 @@ def driver_phase() -> dict:
     return dict(launches=totals, sims=kept, summary=summary)
 
 
+# phase 9, the spatial decomposition (``parallel/spatial.py``): steps per
+# run, the ranks spawned on the one card, the scenes they run, and the body
+# held against its plain version on the extended layout (its neighbour
+# counts exact)
+SPATIAL_STEPS = 3
+SPATIAL_RANKS = 4
+SPATIAL_SCENES = (("flagship", "large_scale_dfsph.json"),
+                  ("dragon_bath", "dragon_bath_dfsph.json"),
+                  ("high_viscosity", "high_viscosity_implicit.json"))
+SPATIAL_BODY = "divergence"
+# body velocities and angular velocities, decomposed against one device:
+# the wrenches are all-reduced, so they add in another order
+# (tests/test_spatial.py:145-153)
+SPATIAL_BODY_TOL = 1e-6
+
+
+def spatial_phase():
+    """Phase 9: the spatial decomposition on the card. Returns its kernel
+    records (the pair kernels on the extended layout, the gather's pack and
+    unpack) and the launches of its decomposed runs, by kernel."""
+    import torch.distributed as dist
+
+    from sph_project_tpu_torch import sim as simlib
+    from sph_project_tpu_torch.core.params import (MATERIAL_FLUID,
+                                                   MATERIAL_NONE)
+    from sph_project_tpu_torch.ops import neighbors as nblib
+    from sph_project_tpu_torch.ops import pair_kernels as pk
+    from sph_project_tpu_torch.ops import pairs
+    from sph_project_tpu_torch.ops import permute as permlib
+    from sph_project_tpu_torch.parallel import launch, spatial
+    from sph_project_tpu_torch.scene import load_scene
+    from sph_project_tpu_torch.solvers import common, viscosity_cg
+
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(ROOT, "build", "smoke", "spatial")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    launches9 = {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            launches9[k] = launches9.get(k, 0) + v
+
+    def sorted_fluid(pos, material):
+        r = np.asarray(pos)[np.asarray(material) == MATERIAL_FLUID]
+        return r[np.lexsort(r.T)]
+
+    def steps_of(step, state, implicit):
+        """SPATIAL_STEPS steps: (state, diagnostics, wall ms, CG
+        iterations)."""
+        diags, ms, cg = [], [], []
+        for _ in range(SPATIAL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, d = step(state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            diags.append({k: v.item() for k, v in d.items()})
+            if implicit:
+                cg.append(int(viscosity_cg.last_solve["cg_iters"]))
+        return state, diags, ms, cg
+
+    def single(scene_name, overrides):
+        """The scene on one device: sorted fluid positions, the body table,
+        diagnostics, wall ms and CG iterations of each step."""
+        scene, state = load_scene(os.path.join(SCENES, scene_name),
+                                  **overrides)
+        sim = simlib.Simulation(scene, state)
+
+        def step(_):
+            return None, sim.step()
+
+        zero_counts()
+        _, diags, ms, cg = steps_of(
+            step, None, scene.params.viscosity_method == "implicit")
+        kernels = {k for k, v in read_counts().items() if v}
+        p, rigid = sim.state.particles, sim.state.rigid
+        out = dict(fluid=sorted_fluid(p.pos.cpu(), p.material.cpu()),
+                   rigid={k: getattr(rigid, k).cpu().numpy()
+                          for k in ("com", "vel", "omega")},
+                   diags=diags, ms=ms, cg=cg, kernels=kernels)
+        del sim
+        torch.cuda.empty_cache()
+        return out
+
+    def held(label, ref, diags, fluid, rigid, cg, launched):
+        """A decomposed run against one device's: fluid bit-equal, counts
+        equal, overflow 0, com bit-equal, vel and omega within
+        SPATIAL_BODY_TOL, the CG's counts equal, and the same kernels
+        launched."""
+        ran = {k for k, v in launched.items() if v}
+        check(ran == ref["kernels"], f"{label}: kernels {sorted(ran)}, one "
+              f"device {sorted(ref['kernels'])}")
+        check(fluid.shape == ref["fluid"].shape and
+              np.array_equal(fluid, ref["fluid"]),
+              f"{label}: fluid positions differ from one device's")
+        for s, (a, b) in enumerate(zip(ref["diags"], diags)):
+            check(b["neighbor_overflow"] == 0,
+                  f"{label}, step {s}: neighbor_overflow {b['neighbor_overflow']}")
+            for k in ("solver_iters", "div_iters"):
+                check(a[k] == b[k], f"{label}, step {s}: {k} {b[k]}, one "
+                      f"device {a[k]}")
+        check(cg == ref["cg"], f"{label}: CG iterations {cg}, one device "
+              f"{ref['cg']}")
+        check(np.array_equal(rigid["com"], ref["rigid"]["com"]),
+              f"{label}: body com differs")
+        dv = max(float(np.abs(rigid[k] - ref["rigid"][k]).max())
+                 for k in ("vel", "omega"))
+        check(dv <= SPATIAL_BODY_TOL, f"{label}: body vel / omega off by {dv}")
+        return dv
+
+    # ---- 9a. world size 1, NCCL, in this process ---------------------------
+    launch.init("nccl", 0, 1, os.path.join(run_dir, "store"))
+    mesh = spatial.make_mesh()
+    check(mesh.backend == "nccl" and mesh.device.type == "cuda",
+          f"world size 1: backend {mesh.backend} on {mesh.device}")
+    say(f"[9] world size 1: backend {mesh.backend}, {mesh.device}")
+    ref = {}
+    spatial_ms = {}
+    kept = None
+    for engine, overrides in (("pair_pass", {}), ("pair_slab", SLAB)):
+        label = f"flagship DFSPH cold, {engine}"
+        ref1 = single(SPATIAL_SCENES[0][1], overrides)
+        scene, state = load_scene(os.path.join(SCENES, SPATIAL_SCENES[0][1]),
+                                  **overrides)
+        params = scene.params
+        state = spatial.shard_state(simlib.prepare(state.to(mesh.device), params),
+                                    mesh, params)
+        step = spatial.spatial_step_fn(params, mesh)
+        zero_counts()
+        state, diags, ms, _ = steps_of(step, state, False)
+        counts = read_counts()
+        tally(counts)
+        p = state.particles
+        held(f"world size 1, {label}", ref1, diags,
+             sorted_fluid(p.pos.cpu(), p.material.cpu()),
+             {k: getattr(state.rigid, k).cpu().numpy()
+              for k in ("com", "vel", "omega")}, [], counts)
+        H = spatial.halo_width(params, params.n_pad)
+        spatial_ms[(1, engine)] = ms
+        say(f"[9] world size 1, {label}: {SPATIAL_STEPS} steps bit-equal to "
+            f"one device (iterations "
+            f"{[(d['solver_iters'], d['div_iters']) for d in diags]}, "
+            f"overflow 0), H {H}; wall ms {[round(x, 2) for x in ms]}, one "
+            f"device {[round(x, 2) for x in ref1['ms']]}; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        check(counts["permute"] == 4 * SPATIAL_STEPS and
+              counts[f"{engine}/{SPATIAL_BODY}"] > 0,
+              f"world size 1, {label}: launches {counts}")
+        if engine == "pair_pass":
+            ref["flagship"] = ref1
+            kept = (state, params)
+        del state, step
+        torch.cuda.empty_cache()
+
+    # ---- 9b. the kernels on the extended layout ----------------------------
+    # the layout of the slab-window path (H whole blocks), which both
+    # kernels take
+    state, params = kept
+    params_sp = dataclasses.replace(params, spmd_axis=mesh.axis, **SLAB)
+    st = spatial.global_resort(state, params_sp, mesh)
+    st, senv = spatial.SpatialPlumbing.neighbor_prep(st, params_sp)
+    H, p = senv.halo, st.particles
+    ext = spatial.extend_fields(
+        {"pos": p.pos, "vel": p.vel, "rest_volume": p.rest_volume,
+         "material": p.material}, H, mesh)
+    cells = senv.inner.cells
+    n_ext = cells.shape[0]
+    check(n_ext == params.n_pad + 2 * H and bool((cells[:H] == -1).all())
+          and bool((cells[-H:] == params.num_cells).all()),
+          "the extended layout's sentinels")
+    envs = {"pair_pass": pairs.make_pair_env(cells, senv.inner.produce,
+                                             params),
+            "pair_slab": senv.inner}
+    records = []
+    name, flags = SPATIAL_BODY, pk.COUNT
+    fk = {k: ext[k] for k in pk.fields_of(name, flags)}
+    outs = []
+    for engine, env in envs.items():
+        out_k = pk.run_cuda(name, env, fk, params, None, flags)
+        out_p = pk.run_plain_body(name, env, fk, params, None, flags)
+        torch.cuda.synchronize()
+        err = 0.0
+        for c in out_k:
+            e = float((out_k[c] - out_p[c]).abs().max())
+            err = max(err, e)
+            if c == "cnt":
+                check(e == 0.0, f"{engine}/{name} on the extended layout: "
+                      f"neighbour counts differ")
+            lim = TOL * max(1.0, float(out_p[c].abs().max()))
+            check(e <= lim, f"{engine}/{name}.{c} on the extended layout: "
+                  f"max error {e} > {lim}")
+        check(not bool(out_k["cnt"][:H].any() or out_k["cnt"][-H:].any()),
+              f"{engine}: a halo row produced")
+        outs.append(out_k)
+        ms = cuda_ms(lambda: pk.run_cuda(name, env, fk, params, None, flags),
+                     20)
+        plain_ms = cuda_ms(lambda: pk.run_plain_body(
+            name, env, fk, params, None, flags), 1, warm_up=False)
+        tests, npairs = work_of_rows(env, params, ext, env.produce)
+        read = rows_read(env, params, ext, env.produce)
+        table = ((env.starts, env.lens, env.cells) if engine == "pair_slab"
+                 else (env.cells, env.cell_start))
+        n_bytes = pass_bytes(fk, read, table, len(out_k), n_ext)
+        n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        say(f"[9] {engine}/{name} on the extended layout ({n_ext} rows, H "
+            f"{H} sentinel rows at each end): max_abs_err {err:.3e}, counts "
+            f"exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {tests / max(npairs, 1):.2f} "
+            f"candidates per pair")
+        records.append(dict(
+            name=f"{engine}/{name}@spatial", route="cuda",
+            source=ENGINES[engine][0], replaces=ENGINES[engine][1],
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            state=f"flagship after {SPATIAL_STEPS} spatial steps, halo-"
+                  f"extended at world size 1"))
+    check(all(torch.equal(outs[0][c], outs[1][c]) for c in outs[0]),
+          "the two pair kernels differ on the extended layout")
+    del st, senv, p, ext, envs, fk, outs
+
+    # ---- 9c. the gather's pack and unpack ----------------------------------
+    # rank 1 of SPATIAL_RANKS on the flagship's state advanced as a step
+    # advances it before its second resort: what it packs from its rows, and
+    # what it unpacks from the rows the others send it, which must be its
+    # slice of the globally sorted state
+    p = common.enforce_domain_boundary(
+        common.update_fluid_position(state.particles, state.rigid, params),
+        params)
+    keys, extras = simlib.permuted_keys(params)
+    arrays = {k: getattr(p, k) for k in keys}
+    arrays.update({k: getattr(state, k) for k in extras})
+    arrays["cells"] = nblib.flat_cell_ids(p.pos, p.material != MATERIAL_NONE,
+                                          params)
+    n, r, D = params.n_pad, 1, SPATIAL_RANKS
+    nl = n // D
+    perm = nblib.sort_permutation(arrays["cells"])
+    send_idx, send_counts, recv_counts, inv = spatial.resort_plan(
+        arrays["cells"], r, D)
+    mine = perm[r * nl:(r + 1) * nl]
+    order = torch.sort(torch.div(mine, nl, rounding_mode="floor"),
+                       stable=True).indices
+    local = {k: v[r * nl:(r + 1) * nl].contiguous() for k, v in arrays.items()}
+    received = {k: v[mine[order]].contiguous() for k, v in arrays.items()}
+    for tag, idx, src, want in (
+            ("pack", send_idx, local, None),
+            ("unpack", inv, received,
+             {k: v[mine] for k, v in arrays.items()})):
+        out_k = permlib.permute_fields_cuda(idx, src)
+        out_p = permlib.permute_fields_plain(idx, src)
+        lib = {k: torch.index_select(v, 0, idx) for k, v in src.items()}
+        for k in src:
+            check(out_k[k].dtype == src[k].dtype, f"{tag} {k}: dtype")
+            check(torch.equal(out_k[k].view(torch.int32),
+                              lib[k].view(torch.int32)) and
+                  torch.equal(out_k[k].view(torch.int32),
+                              out_p[k].view(torch.int32)),
+                  f"{tag} {k}: not bit-equal to index_select")
+            if want is not None:
+                check(torch.equal(out_k[k].view(torch.int32),
+                                  want[k].view(torch.int32)),
+                      f"unpack {k}: not rank {r}'s sorted rows")
+        ms = cuda_ms(lambda: permlib.permute_fields_cuda(idx, src), 20)
+        plain_ms = cuda_ms(lambda: permlib.permute_fields_plain(idx, src), 20)
+        lib_ms = cuda_ms(lambda: [torch.index_select(v, 0, idx)
+                                  for v in src.values()], 20)
+        n_bytes = 2 * nbytes(src.values()) + nbytes([idx])
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        say(f"[9] permute, resort {tag} (rank {r} of {D}: {nl} rows, "
+            f"{len(src)} fields; sends {send_counts}, receives "
+            f"{recv_counts}): bit-equal to index_select; kernel {ms:.3f} ms,"
+            f" plain {plain_ms:.3f} ms, index_select per field "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes / 1e6:.1f} MB)")
+        records.append(dict(
+            name=f"permute@{tag}", route="cuda",
+            source="sph_project_tpu_torch/csrc/permute.cu",
+            replaces=PERMUTE_REPLACES, launches=0, max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, fields=len(src)))
+    del state, kept, p, arrays, local, received, perm, mine, order
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # ---- 9d. world size SPATIAL_RANKS on the one card, gloo ----------------
+    for key, scene_name in SPATIAL_SCENES[1:]:
+        ref[key] = single(scene_name, {})
+    cases = [dict(name=key, scene=os.path.join(SCENES, scene_name),
+                  overrides={}, steps=SPATIAL_STEPS)
+             for key, scene_name in SPATIAL_SCENES]
+    t0 = time.perf_counter()
+    launch.launch("sph_project_tpu_torch.parallel.launch:run_cases",
+                  SPATIAL_RANKS, dict(cases=cases,
+                                      out_dir=os.path.join(run_dir, "out")),
+                  os.path.join(run_dir, "ranks"), backend="gloo",
+                  device="cuda", timeout=400)
+    say(f"[9] world size {SPATIAL_RANKS} on one card (spawned ranks): "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    for key, scene_name in SPATIAL_SCENES:
+        res = launch.gather_results(os.path.join(run_dir, "out"), key,
+                                    SPATIAL_RANKS)
+        rows, ranks = res["rows"], res["ranks"]
+        for rk, rr in enumerate(ranks):
+            check(rr["backend"] == "gloo" and not rr["foreign"] and
+                  rr["shortfall"] == 0 and rr["diags"] == ranks[0]["diags"],
+                  f"{key}, rank {rk}: backend {rr['backend']}, foreign "
+                  f"{rr['foreign']}, shortfall {rr['shortfall']}")
+            tally(rr["launches"])
+        launched = {k: sum(rr["launches"].get(k, 0) for rr in ranks)
+                    for k in ranks[0]["launches"]}
+        dv = held(f"world size {SPATIAL_RANKS}, {scene_name}", ref[key],
+                  ranks[0]["diags"],
+                  sorted_fluid(rows["particles.pos"],
+                               rows["particles.material"]),
+                  {k: rows[f"rigid.{k}"] for k in ("com", "vel", "omega")},
+                  ranks[0]["cg_iters"], launched)
+        ms = [max(rr["ms"][s] for rr in ranks) for s in range(SPATIAL_STEPS)]
+        spatial_ms[(SPATIAL_RANKS, key)] = ms
+        check(launched.get("permute", 0) == 4 * SPATIAL_STEPS * SPATIAL_RANKS
+              and launched.get(f"pair_pass/{SPATIAL_BODY}", 0) > 0,
+              f"{key}: launches {launched}")
+        say(f"[9] world size {SPATIAL_RANKS}, {scene_name} (n_pad "
+            f"{ranks[0]['n_pad']}): {SPATIAL_STEPS} steps bit-equal to one "
+            f"device (iterations "
+            f"{[(d['solver_iters'], d['div_iters']) for d in ranks[0]['diags']]}"
+            f", CG {ranks[0]['cg_iters']}, body vel / omega within {dv:.1e});"
+            f" backend gloo; H per rank {[rr['H'] for rr in ranks]}, "
+            f"shortfall per rank {[rr['shortfall'] for rr in ranks]}; wall ms "
+            f"(slowest rank) {[round(x, 1) for x in ms]}, one device "
+            f"{[round(x, 2) for x in ref[key]['ms']]}; launches (all ranks) "
+            f"{json.dumps(launched)}")
+    for rec in records:
+        key = "permute" if rec["name"].startswith("permute@") \
+            else rec["name"].split("@")[0]
+        # a resort is one pack and one unpack
+        rec["launches"] = launches9.get(key, 0) // (
+            2 if key == "permute" else 1)
+        check(rec["launches"] > 0, f"{rec['name']}: no launch in phase 9")
+    say("[9] wall ms of a decomposed step, median after the first: " +
+        "; ".join(f"world size {ws}, {k}: {median(ms[1:]):.2f}"
+                  for (ws, k), ms in spatial_ms.items()))
+    say(f"[9] phase 9: {time.perf_counter() - t_phase:.1f} s; launches of "
+        f"the spatial runs {json.dumps({k: v for k, v in launches9.items() if v})}")
+    return records, launches9
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1209,18 +1618,6 @@ def main() -> int:
                 "x": torch.where(fluid, p.vel + seeded(
                     rng.normal(0.0, 0.1, (n, dim))), torch.zeros_like(p.vel))}
 
-    def work_of_rows(env, params, fields, produce):
-        """(candidates tested, pairs inside the radius) over these rows, the
-        candidates counted from the engine's own table: a row's 9 runs of the
-        cell table, or its 9 pieces of its block's windows."""
-        rows = torch.nonzero(produce).flatten()
-        slab = pk.engine_of(env) == "pair_slab"
-        ranges = pairs.window_pieces if slab else pairs.candidate_ranges
-        cand = int(ranges(env, rows)[1].sum())
-        cnt = pk.run_cuda("divergence", env, fields, params, produce,
-                          flags=1)["cnt"]
-        return cand, int(cnt.sum().item())
-
     def rigid_j_pairs(env, params, fields, produce) -> int:
         """Pairs inside the radius of these rows whose neighbour is rigid,
         through the plain cell-list executor."""
@@ -1234,32 +1631,6 @@ def main() -> int:
 
         out = pairs.run_plain(body, cell_env, comps, ("n",), produce=produce)
         return int(out["n"].sum().item())
-
-    def rows_read(env, params, fields, produce) -> int:
-        """The rows whose fields a pass over these producing rows needs: the
-        rows themselves and every row within the radius of one. A pair is
-        symmetric, so these are the rows that produce or have a producing
-        neighbour: one plain pass over all rows, through the cell-list
-        executor (the pairs of both engines are the same)."""
-        cell_env = pairs.make_pair_env(env.cells, env.produce, params)
-        comps = {"pos": fields["pos"], "mark": produce.to(torch.float32)}
-
-        def body(cx):
-            _, _, mask = cx.geometry()
-            return {"n": cx.sum(cx.slab("mark"), mask)}
-
-        out = pairs.run_plain(body, cell_env, comps, ("n",),
-                              produce=fields["material"] != MATERIAL_NONE)
-        return int((produce | (out["n"] > 0)).sum().item())
-
-    def pass_bytes(fk, read, table, n_out, n) -> int:
-        """Bytes a pass must move at the least, each once: its per-row fields
-        on the ``read`` rows it needs, its per-object tables, the engine's
-        table, the produce mask and its (n_out, n) outputs."""
-        fields = sum(t.numel() * t.element_size() // t.shape[0] * read
-                     if t.shape[0] == n else t.numel() * t.element_size()
-                     for t in fk.values())
-        return fields + nbytes(table) + n * 1 + n_out * n * 4
 
     def check_engine(sim, bodies, where=None):
         """``bodies`` of the engine of ``sim``'s environment against their
@@ -2572,14 +2943,21 @@ def main() -> int:
     records.extend(new_records)
     say(f"[8] phase 8: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 9. records --------------------------------------------------------
+    # ---- 9. the spatial decomposition ---------------------------------------
+    records9, launches9 = spatial_phase()
+    for rec in records:
+        rec["launches"] += launches9.get(rec["name"], 0)
+    records.extend(records9)
+
+    # ---- 10. records -------------------------------------------------------
     # per engine: every body but the contact pass, the DEM pass and the PBF
     # bodies at the flagship's shapes, the rigid variants, the bodies of a
-    # PBF step in 3D and in 2D, phase 8's instances and its DEM pass; and
-    # the gather
+    # PBF step in 3D and in 2D, phase 8's instances and its DEM pass, and
+    # phase 9's body on the extended layout; the gather, and its resort pack
+    # and unpack
     n_pbf = len([b for b in pk.BODIES if b.startswith("pbf_")])
     check(len(records) == 2 * (len(pk.BODIES) - 2 - n_pbf + len(RIGID_VARIANTS)
-                               + 2 * len(PBF_BODIES) + len(measured) + 1) + 1,
+                               + 2 * len(PBF_BODIES) + len(measured) + 2) + 3,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))
     say(card)

@@ -60,7 +60,10 @@ __global__ void __launch_bounds__(PASS_THREADS) pair_kernel(const __grid_constan
   const int num_cells = a.gx * a.gy * a.gz;
   int cell = num_cells;
   if (i < a.n && a.produce[i]) cell = a.cells[i];
-  const bool mine = cell < num_cells;
+  // 0 <= cell < num_cells in one unsigned compare: a halo slot no rank sent
+  // has cell -1 (parallel/spatial.py) and is never mine
+  const bool mine =
+      static_cast<unsigned>(cell) < static_cast<unsigned>(num_cells);
   Row<B> r;
   r.init(a, i, mine, lists + threadIdx.x, PASS_THREADS);
   if (__any_sync(FULL_MASK, mine)) {

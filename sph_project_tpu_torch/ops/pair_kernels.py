@@ -719,7 +719,7 @@ _PTR_FIELDS = ("pos", "vel", "cells", "cell_start", "produce", "material",
 # a vector); every other one (N,) f32
 _VECTORS = ("pos", "vel", "pred", "dii", "dij_pj", "x", "com")
 _INTS = ("material", "object_id", "is_dynamic", "chan")
-_TABLES = ("chan", "com")
+TABLES = ("chan", "com")
 N_CONST = 16
 N_KC = 6
 # PairArgs.kind
@@ -782,7 +782,7 @@ def run_cuda(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     for key in needs:
         if key not in fields:
             raise ValueError(f"pair kernel {name}: missing field {key}")
-        rows = params.max_objects if key in _TABLES else n
+        rows = params.max_objects if key in TABLES else n
         shape = (rows, dim) if key in _VECTORS else (rows,)
         ptr(key, fields[key],
             torch.int32 if key in _INTS else torch.float32, shape)
@@ -826,7 +826,7 @@ def run_plain_body(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     object id (-1 or 0 on rows of no object)."""
     body = BODIES[name][1]
     fk = {k: fields[k] for k in fields_of(name, flags)}
-    for k in _TABLES:
+    for k in TABLES:
         if k in fk:
             obj = fields["object_id"]
             rows = fk[k][obj.clamp(0, params.max_objects - 1).long()]
@@ -991,7 +991,12 @@ def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
         flags: int = 0) -> Dict[str, torch.Tensor]:
     """One pair pass under ``env``'s engine: its CUDA kernel for CUDA
     tensors, its plain version for CPU tensors. Returns per-row outputs,
-    vectors merged to (N, dim)."""
+    vectors merged to (N, dim). An environment that is not an engine's
+    (``parallel/spatial.SpatialEnv``, of the spatial decomposition) runs
+    the pass itself, through its ``run``: on its halo-extended rows, as the
+    JAX package's ``pair_exec.run`` routes one (:301-303)."""
+    if not isinstance(env, PairEnv):
+        return env.run(name, fields, params, produce, flags)
     kind = env.cells.device.type
     if kind == "cuda":
         out = run_cuda(name, env, fields, params, produce, flags)

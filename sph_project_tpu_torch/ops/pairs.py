@@ -211,12 +211,14 @@ def _cell_xy(cells: torch.Tensor, grid: tuple):
 def _ranges(env: PairEnv, rows: torch.Tensor):
     """(lo, hi, ok), each (R, 9) ((R, 3) in 2D): the index range [lo, hi) of
     the 3 z-cells around each row's cell in each of the 9 (x+dx, y+dy) rows
-    of cells, and whether that row of cells exists (never for a row with the
-    sentinel id)."""
+    of cells, and whether that row of cells exists (never for a row with a
+    sentinel id: ``num_cells`` at the tail, or -1 at the front, a halo slot
+    no rank sent under the spatial decomposition; the JAX package's
+    ``pairs.py`` :311-313)."""
     gx, gy, gz = grid3(env.grid)
     c = env.cells[rows].long()
     x, y, z = _cell_xy(c, env.grid)
-    live = c < gx * gy * gz
+    live = (c >= 0) & (c < gx * gy * gz)
     zlo = torch.clamp_min(z - 1, 0)
     zhi = torch.clamp_max(z + 1, gz - 1)
     start = env.cell_start.long()
@@ -265,12 +267,12 @@ def window_pieces(env: SlabEnv, rows: torch.Tensor):
     the kernel finds it, from the window table and the sorted cell ids: the
     candidates of the window whose cell id lies in the three z-cells around
     the row's in the segment's row of cells. Empty where that row of cells
-    does not exist."""
+    does not exist, and for a row with a sentinel id."""
     gx, gy, gz = grid3(env.grid)
     cells = env.cells.long()
     c = cells[rows]
     x, y, z = _cell_xy(c, env.grid)
-    live = c < gx * gy * gz
+    live = (c >= 0) & (c < gx * gy * gz)
     zlo = torch.clamp_min(z - 1, 0)
     zhi = torch.clamp_max(z + 1, gz - 1)
     ws = env.starts.long()[rows // env.block]

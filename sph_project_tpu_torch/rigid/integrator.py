@@ -8,7 +8,10 @@ walls. Contact between bodies is an impulse solve over per-body contact
 channels that one pair pass fills (``rigid_contact`` in ``ops/pair_kernels``);
 the walls are a projection and a velocity clamp on each body's particle
 extent. Everything stays on the device: nothing here reads a value on the
-host, and the loop over ``contact_iters`` sweeps is over a parameter.
+host, and the loop over ``contact_iters`` sweeps is over a parameter. Under
+the spatial decomposition the contact tables and the extents are reduced
+over the mesh (``common.global_tables``, :202-204 and :355-357), so every
+rank steps the bodies alike.
 
 In 2D a body turns in the plane: its angular velocity and torque are (O, 1)
 and every cross product is ``common.pair_cross``'s scalar. The
@@ -23,8 +26,9 @@ from ..core.params import MATERIAL_RIGID, SimParams
 from ..core.state import ParticleState, RigidState, constant
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
-from ..solvers.common import (matmul, matvec, object_gather, object_index,
-                              object_reduce, pair_cross, reduce_wrench)
+from ..solvers.common import (global_tables, matmul, matvec, object_gather,
+                              object_index, object_reduce, pair_cross,
+                              reduce_wrench)
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -160,7 +164,8 @@ def resolve_body_contacts(p: ParticleState, rigid: RigidState,
         packed[f"n_{tag}"] = contact[f"cn_{tag}"]
         packed[f"p_{tag}"] = w_c[:, None] * p.pos
         packed[f"c_{tag}"] = (w_c > 1e-12).to(torch.float32)
-    red = object_reduce(packed, object_index(p, params), O)
+    red = global_tables(object_reduce(packed, object_index(p, params), O),
+                        params)
     W = torch.stack([red[f"w_{t}"] for t in tags], -1).reshape(O * C)
     N = torch.stack([red[f"n_{t}"] for t in tags], 1).reshape(O * C, dim)
     Pt = torch.stack([red[f"p_{t}"] for t in tags], 1).reshape(O * C, dim)
@@ -289,6 +294,8 @@ def rigid_body_step(p: ParticleState, rigid: RigidState, params: SimParams,
     x_new = t["com"] + matvec(t["rot"], p.rigid_rest_pos - t["com0"])
     bmin, bmax = _extents(x_new, torch.where(is_body, obj,
                                              torch.full_like(obj, O)), O)
+    bmin = global_tables({"b": bmin}, params, "min")["b"]
+    bmax = global_tables({"b": bmax}, params, "max")["b"]
     pen_lo = torch.clamp_min(lo[None] - bmin, 0.0)
     pen_hi = torch.clamp_min(bmax - hi[None], 0.0)
     has_particles = bmin[:, 0] < 1e9

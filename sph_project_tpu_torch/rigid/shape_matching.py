@@ -11,7 +11,9 @@ polar factor of the body's covariance. The DEM contact between bodies that
 feeds the accumulated wrench is ``integrator.rigid_contact_wrench``.
 
 Per-object sums are ``common.object_reduce`` (a fixed-order float32
-product) and reads of the body table ``common.object_gather``. The polar
+product), reduced over the mesh under the spatial decomposition
+(``common.global_tables``, :79 and :113-114), and reads of the body table
+``common.object_gather``. The polar
 factor takes ``torch.linalg.svd`` and ``torch.linalg.det`` of the (O, dim,
 dim) covariances, as the JAX package takes ``jnp.linalg.svd`` and
 ``jnp.linalg.det`` outside any kernel; the products of small matrices are
@@ -23,8 +25,8 @@ import torch
 
 from ..core.params import MATERIAL_RIGID, SimParams
 from ..core.state import ParticleState, RigidState, constant
-from ..solvers.common import (cross, matmul, matvec, object_gather,
-                              object_index, object_reduce)
+from ..solvers.common import (cross, global_tables, matmul, matvec,
+                              object_gather, object_index, object_reduce)
 
 
 def _polar_rotation(A: torch.Tensor) -> torch.Tensor:
@@ -83,8 +85,9 @@ def shape_matching_step(p: ParticleState, rigid: RigidState,
     pos = torch.where(sel_v, clamped, pos)
 
     # per-body counts and centroids
-    red = object_reduce({"w": sel.to(torch.float32), "pos": pos,
-                         "rest": p.rigid_rest_pos}, obj, O, sel=sel)
+    red = global_tables(object_reduce({"w": sel.to(torch.float32), "pos": pos,
+                                       "rest": p.rigid_rest_pos}, obj, O,
+                                      sel=sel), params)
     cnt = red["w"]
     cnt_safe = torch.clamp_min(cnt, 1.0)
     com = red["pos"] / cnt_safe[:, None]
@@ -95,7 +98,8 @@ def shape_matching_step(p: ParticleState, rigid: RigidState,
     q = p.rigid_rest_pos - tc["com0"]
     x = pos - tc["com"]
     xq = (x[:, :, None] * q[:, None, :]).reshape(x.shape[0], -1)
-    A = object_reduce({"a": xq}, obj, O, sel=sel)["a"].reshape(O, dim, dim)
+    A = global_tables(object_reduce({"a": xq}, obj, O, sel=sel),
+                      params)["a"].reshape(O, dim, dim)
     has = cnt > 0
     eye = torch.eye(dim, dtype=torch.float32, device=dev)[None]
     A = torch.where(has[:, None, None], A, eye)
@@ -111,6 +115,7 @@ def shape_matching_step(p: ParticleState, rigid: RigidState,
                            device=dev).scatter_reduce(
         0, seg[:, None].expand(-1, dim),
         hit.to(torch.int32), "amax")[:O]                          # (O, dim)
+    hit_axis = global_tables({"h": hit_axis}, params, "max")["h"]
     body_hit = torch.any(hit_axis > 0, dim=-1)
     th = object_gather({"hx": hit_axis, "bh": body_hit}, obj)
     new_vel = torch.where(th["hx"] > 0, torch.zeros_like(new_vel), new_vel)

@@ -200,8 +200,11 @@ class Plumbing:
     def diagnostics(state: SimState, env: pairs.PairEnv, params: SimParams,
                     extra: dict | None = None) -> dict:
         """Per-step diagnostics, the keys of the JAX package (:364). The
-        overflow and incremental-sort counters are 0 by construction: the
-        port has no window or sort caps and always sorts in full."""
+        sort counters are 0 by construction: the port has no window or sort
+        caps and always sorts in full. ``neighbor_overflow`` is 0 on one
+        device (the environments have no caps) and, under the spatial
+        decomposition, the halo's shortfall (``env.overflow``) summed over
+        the ranks (:384)."""
         p = state.particles
         dev = p.pos.device
         fluid = p.material == MATERIAL_FLUID
@@ -222,7 +225,8 @@ class Plumbing:
                 fluid & (torch.sum(p.vel * p.vel, dim=-1) >= cap2),
                 params).to(torch.int32)
                 if params.vel_cap_cfl > 0 else zero_i),
-            neighbor_overflow=zero_i,
+            neighbor_overflow=(common.global_sum(env.overflow, params).to(
+                torch.int32) if params.spmd_axis else zero_i),
             sort_overflow_inc=zero_i,
             sort_crossers=zero_i,
             sort_inc_taken=zero_i,
@@ -233,15 +237,18 @@ class Plumbing:
         return d
 
 
-def get_step_fn(params: SimParams):
+def get_step_fn(params: SimParams, plumbing=None):
     """The step function of the scene's method (:403), with the overflow
-    accumulators carried in the state (:427-442)."""
+    accumulators carried in the state (:427-442). ``plumbing`` replaces
+    :class:`Plumbing` (the spatial decomposition's, in
+    ``parallel/spatial.py``)."""
     _check_ported(params)
+    plumbing = plumbing or Plumbing
     solver = importlib.import_module(f".solvers.{params.simulation_method}",
                                      __package__)
 
     def step_with_overflow_accounting(state: SimState):
-        state, diag = solver.step(state, params, Plumbing)
+        state, diag = solver.step(state, params, plumbing)
         so = diag["sort_overflow"]
         wo = diag["neighbor_overflow"] - so
         sort_acc = state.sort_overflow_acc + so

@@ -14,6 +14,12 @@ are the JAX package's float32 one-hot product: its order is fixed, so a
 trajectory is the same from run to run on the card, where float atomics
 (``index_add_``) would add in another order every time. A product of small
 3x3 matrices is written out as sums of products, never a batched matmul.
+
+Under the spatial decomposition (``params.spmd_axis`` set, see
+``parallel/spatial.py``) each rank holds a slice of the particles, and the
+reductions over particles end in an all-reduce over the mesh the axis names:
+:func:`global_sum`, :func:`global_max` and :func:`global_tables` (the
+per-object wrench, contact and extent tables).
 """
 from __future__ import annotations
 
@@ -24,16 +30,51 @@ from ..core.state import ParticleState, RigidState, constant
 from ..ops import kernels
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
+from ..parallel import collectives
 
 
 def global_sum(x: torch.Tensor, params: SimParams) -> torch.Tensor:
-    """Sum over all particles (:49). Float inputs sum in float32."""
-    return torch.sum(x)
+    """Sum over all particles (:49), of every rank's under ``spmd_axis``.
+    Float inputs are added in float64 and the total rounded to float32
+    once. A float32 sum rounds in an order that depends on how the rows are
+    split (over ranks, or over a reduction's threads); the float64 totals
+    of two splits differ by at most about n * 1e-16 relative, so they round
+    to the same float32 value unless one lies that close to a float32
+    rounding boundary. The corrector errors and the CG's dots then come out
+    alike on one device and on a mesh, in all but that rare case, where the
+    two can still differ in the last bit and the trajectories part.
+
+    This holds on one device too, so there the port departs from the JAX
+    package, which adds in float32: a total may differ from its in the last
+    bit."""
+    if not x.is_floating_point():
+        s = torch.sum(x)
+    else:
+        s = torch.sum(x, dtype=torch.float64)
+    if params.spmd_axis:
+        s = collectives.all_reduce(s, "sum",
+                                   collectives.mesh_of(params.spmd_axis))
+    return s.to(torch.float32) if x.is_floating_point() else s
 
 
 def global_max(x: torch.Tensor, params: SimParams) -> torch.Tensor:
     """:59."""
-    return torch.max(x)
+    m = torch.max(x)
+    if params.spmd_axis:
+        m = collectives.all_reduce(m, "max",
+                                   collectives.mesh_of(params.spmd_axis))
+    return m
+
+
+def global_tables(tables: dict, params: SimParams, op: str = "sum") -> dict:
+    """Per-object tables of this rank's rows reduced over the mesh (``op``:
+    sum, max, min; :66 ``global_wrench``, and the psum / pmin / pmax of the
+    rigid modules), one all-reduce for the dict; as they are on one
+    device."""
+    if not params.spmd_axis:
+        return tables
+    return collectives.all_reduce_tables(
+        tables, op, collectives.mesh_of(params.spmd_axis))
 
 
 def _fluid(p: ParticleState) -> torch.Tensor:
@@ -108,8 +149,9 @@ def reduce_wrench(force_pp: torch.Tensor, torque_pp: torch.Tensor,
                   p: ParticleState, params: SimParams):
     """Per-rigid-particle wrenches summed into per-object wrenches (:151)."""
     sel = rigid_dyn(p) & (p.object_id >= 0)
-    out = object_reduce({"f": force_pp, "t": torque_pp},
-                        object_index(p, params), params.max_objects, sel=sel)
+    out = global_tables(object_reduce({"f": force_pp, "t": torque_pp},
+                                      object_index(p, params),
+                                      params.max_objects, sel=sel), params)
     return out["f"], out["t"]
 
 

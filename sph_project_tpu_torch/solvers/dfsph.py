@@ -289,24 +289,33 @@ def _nonpressure_and_density_solve(p: ParticleState, rigid: RigidState,
         kappa0=state.dfsph_kappa if params.dfsph_warm_start else None)
 
 
-def step(state: SimState, params: SimParams, plumbing):
-    """One DFSPH step (:581). Density, alpha and the pair environment for the
-    start of the step come from the end of the previous one (``prepare``
-    seeds them)."""
+def _first_half(state: SimState, env: PairEnv, params: SimParams,
+                plumbing):
+    """The step up to the resort (:581-600): the non-pressure accelerations
+    and the constant-density solve on ``env``, the advection, the rigid
+    stage and the domain clamp. Returns (state, its diagnostics)."""
     p, rigid = state.particles, state.rigid
-    env0 = state.cached_neighbors
-
     p, rigid, itr_d, err_d, kacc = _nonpressure_and_density_solve(
-        p, rigid, state, env0, params, plumbing)
+        p, rigid, state, env, params, plumbing)
     p = common.update_fluid_position(p, rigid, params)
     state = state.replace(particles=p, rigid=rigid)
     if params.dfsph_warm_start:
         state = state.replace(dfsph_kappa=kacc)
-    state = plumbing.rigid_mid(state, env0, params)
+    state = plumbing.rigid_mid(state, env, params)
     p = common.enforce_domain_boundary(state.particles, params,
                                        MATERIAL_FLUID)
-    state = state.replace(particles=p)
+    dev = p.pos.device
+    return state.replace(particles=p), dict(
+        solver_iters=constant(itr_d, torch.int32, dev),
+        solver_err=err_d.to(dev) * params.density0)
 
+
+def _second_half(state: SimState, params: SimParams, plumbing,
+                 extra: dict | None = None):
+    """The step from the resort on (:601-626): the new pair environment,
+    density, alpha and the divergence-free solve, then the step's end.
+    Returns (state, environment, diagnostics, with ``extra`` before this
+    half's)."""
     state, env = plumbing.neighbor_prep(state, params)
     p = state.particles
     dens, alpha, deriv0, svol = density_alpha_divergence(p, env, params)
@@ -319,16 +328,46 @@ def step(state: SimState, params: SimParams, plumbing):
         p = common.apply_rigid_volume(p, svol, params)
 
     state = state.replace(
-        particles=p, rigid=rigid, dfsph_alpha=alpha, cached_neighbors=env,
+        particles=p, rigid=rigid, dfsph_alpha=alpha,
         t=state.t + params.dt, step_count=state.step_count + 1,
     )
     if params.dfsph_warm_start_div:
         state = state.replace(dfsph_kappa_v=kacc_v)
     dev = p.pos.device
     diag = plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=constant(itr_d, torch.int32, dev),
-        solver_err=err_d.to(dev) * params.density0,
-        div_iters=constant(itr_v, torch.int32, dev),
-        div_err=err_v.to(dev),
-    ))
+        extra or {}, div_iters=constant(itr_v, torch.int32, dev),
+        div_err=err_v.to(dev)))
+    return state, env, diag
+
+
+def step(state: SimState, params: SimParams, plumbing):
+    """One DFSPH step (:581). Density, alpha and the pair environment for the
+    start of the step come from the end of the previous one (``prepare``
+    seeds them)."""
+    state, diag_a = _first_half(state, state.cached_neighbors, params,
+                                plumbing)
+    state, env, diag = _second_half(state, params, plumbing, extra=diag_a)
+    return state.replace(cached_neighbors=env), diag
+
+
+def segment_a(state: SimState, params: SimParams, plumbing):
+    """The first half of a step (:528) for a step that cannot keep its pair
+    environment across the step boundary (the spatial decomposition, which
+    resorts before each half): the environment built anew, then density and
+    alpha on it. They are those the previous step ended with (or
+    ``prepare`` made), bit for bit: the positions have not moved since, and
+    the fused pass adds each sum's terms as the density and alpha passes
+    do, in the same order. Returns (state, diagnostics of this half)."""
+    state, env = plumbing.neighbor_prep(state, params)
+    dens, alpha, _, _ = density_alpha_divergence(state.particles, env, params)
+    state = state.replace(particles=state.particles.replace(density=dens),
+                          dfsph_alpha=alpha)
+    return _first_half(state, env, params, plumbing)
+
+
+def segment_b(state: SimState, params: SimParams, plumbing):
+    """The second half of a step (:556): the divergence-free solve and the
+    step's end, after a resort. Returns (state, diagnostics of this
+    half)."""
+    state, _, diag = _second_half(state, params, plumbing)
     return state, diag

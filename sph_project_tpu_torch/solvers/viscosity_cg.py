@@ -130,5 +130,5 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     visc_x = torch.where(fmask, x - p.vel, zero)
     last_solve.update(cg_iters=itr, cg_err=err,
-                      visc_x_max=torch.max(torch.abs(visc_x)))
+                      visc_x_max=common.global_max(torch.abs(visc_x), params))
     return p, rigid, state.replace(visc_x=visc_x)

@@ -256,3 +256,52 @@ def test_root_scripts_name_no_jax():
                                                   "sph_project_tpu"):
                         bad.append(f"{name}:{n}: {line.strip()}")
     assert not bad, "\n".join(bad)
+
+
+# the spatial decomposition in two spawned ranks (gloo over the CPU): one
+# step of the smoke scene under DFSPH; each rank lists the foreign modules
+# it loaded, and so does the parent that started them
+_PROBE_SPATIAL = """
+import os, sys
+from sph_project_tpu_torch.parallel import launch
+run = sys.argv[1]
+case = dict(name="smoke", scene="data/scenes/smoke_test.json",
+            overrides=dict(simulation_method="dfsph"), steps=1)
+launch.launch("sph_project_tpu_torch.parallel.launch:run_cases", 2,
+              dict(cases=[case], out_dir=os.path.join(run, "out")), run,
+              device="cpu")
+res = launch.gather_results(os.path.join(run, "out"), "smoke", 2)
+for r in res["ranks"]:
+    assert r["diags"][0]["neighbor_overflow"] == 0 and r["backend"] == "gloo"
+    print("RANK FOREIGN", r["foreign"])
+print("FOREIGN", launch.foreign_modules())
+"""
+
+
+def test_spatial_ranks_import_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE_SPATIAL, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.count("RANK FOREIGN []") == 2, out.stdout
+    assert "\nFOREIGN []" in out.stdout, out.stdout
+
+
+def test_mesh_defaults_to_cuda(tmp_path):
+    """The multi-device mesh and launcher, like the simulation, target the
+    card unless asked otherwise; on a host without one they raise, before
+    any rank starts."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from sph_project_tpu_torch.parallel import launch, spatial
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial.make_mesh()
+    run = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.launch("sph_project_tpu_torch.parallel.launch:run_cases", 2,
+                      dict(cases=[], out_dir=run), run)
+    assert not os.path.exists(run)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_probes(0, 1, [], run)
