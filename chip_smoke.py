@@ -152,8 +152,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    bit-equal, body velocities within 1e-6, iteration and CG counts equal,
    no shortfall on any rank); the H, shortfall, backend, wall ms and
    launches of each run;
-10. one JSON line with every kernel record (its launches count phases 6's,
-   8's and 9's runs too), the card line again, then the result.
+10. the offline pipeline on the card's host: ``native.available()``; the
+   load times of ``dragon_bath_dfsph.json`` and ``high_viscosity_bunny.json``
+   with the native inside test and with the numpy one (the same particles
+   from both); the settled flagship from phase 6's checkpoint a few steps
+   through the driver with its particle export on (counts zeroed just
+   before, read just after), then ``surface_reconstruction_torch.py`` and
+   ``render_torch.py`` on the frame it wrote (1,231,200 fluid particles):
+   the OBJ has triangles, finite vertices inside the domain box and within
+   the fluid's bound plus 2h, the PNG has the size asked for and pixels
+   drawn; the scripts' host times, and ``blender_test_torch.py`` listing
+   the card;
+11. one JSON line with every kernel record (its launches count phases 6's,
+   8's, 9's and 10's runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing any result.
@@ -190,6 +201,7 @@ COUNTS = {"large_scale_dfsph.json": (None, None, 0),
           "buckling_emitter.json": (106400, 2175303, 0),
           "coiling_emitter.json": (99880, 1843674, 0)}
 FLAGSHIP_PARTICLES = 1958454
+FLAGSHIP_FLUID = 1231200
 # the bodies each method's path runs; prepare adds rigid_volume (the walls)
 DFSPH_BODIES = ("density", "alpha", "nonpressure", "divergence", "correction",
                 "density_alpha_divergence", "rigid_volume", "nonpressure_warm")
@@ -1212,6 +1224,7 @@ def spatial_phase():
                                              params),
             "pair_slab": senv.inner}
     records = []
+    instr_per_s = instruction_rate()
     name, flags = SPATIAL_BODY, pk.COUNT
     fk = {k: ext[k] for k in pk.fields_of(name, flags)}
     outs = []
@@ -1243,16 +1256,18 @@ def spatial_phase():
         n_bytes = pass_bytes(fk, read, table, len(out_k), n_ext)
         n_ops = npairs * (GEOMETRY_OPS + OPS_PER_PAIR[name])
         b_ms, b_by = bound_ms(n_bytes, n_ops)
+        floor_ms = (tests * TEST_INSTR + n_ops) / instr_per_s * 1e3
         say(f"[9] {engine}/{name} on the extended layout ({n_ext} rows, H "
             f"{H} sentinel rows at each end): max_abs_err {err:.3e}, counts "
             f"exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), {tests / max(npairs, 1):.2f} "
-            f"candidates per pair")
+            f"{b_ms:.4f} ms ({b_by}), instruction floor {floor_ms:.4f} ms, "
+            f"{tests / max(npairs, 1):.2f} candidates per pair")
         records.append(dict(
             name=f"{engine}/{name}@spatial", route="cuda",
             source=ENGINES[engine][0], replaces=ENGINES[engine][1],
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            issue_floor_ms=floor_ms, tests_per_pair=tests / max(npairs, 1),
             state=f"flagship after {SPATIAL_STEPS} spatial steps, halo-"
                   f"extended at world size 1"))
     check(all(torch.equal(outs[0][c], outs[1][c]) for c in outs[0]),
@@ -1382,6 +1397,232 @@ def spatial_phase():
     say(f"[9] phase 9: {time.perf_counter() - t_phase:.1f} s; launches of "
         f"the spatial runs {json.dumps({k: v for k, v in launches9.items() if v})}")
     return records, launches9
+
+
+# phase 10, the offline pipeline on the card's host: the settled flagship
+# (phase 6's checkpoint) a few steps through the driver with its particle
+# export on, then surface_reconstruction_torch.py and render_torch.py on the
+# frame it wrote
+OFFLINE_STEPS = 5
+# the export cadence (the scene's outputInterval): of the steps after the
+# resume, step SETTLE_STEPS is the one whose frame is written
+OFFLINE_INTERVAL = 10
+# the surface grid's cell in particle radii (the script's --grid-scale). The
+# preview renderer draws one triangle at a time in Python, and a frame's
+# triangles grow as the inverse square of the cell: the script's default of
+# 1 radius would make nine times as many, and their render would not fit
+# the run's time (PERF.md §5)
+OFFLINE_GRID_SCALE = 3.0
+# the preview camera: the whole domain box in view
+OFFLINE_SIZE = (800, 600)
+OFFLINE_EYE = (4.25, 5.0, 11.0)
+OFFLINE_TARGET = (4.25, 0.8, 1.0)
+# the scripts' defaults: particle radius (the flagship's) and the kernel
+# support in radii; the surface lies within the fluid's bound plus 2h
+OFFLINE_RADIUS = 0.01
+OFFLINE_SMOOTHING = 3.5
+# the preview renderer's background (io/render3d.py)
+RENDER_BG = (20, 20, 26)
+# the scenes whose load fills meshes (geometry/mesh.py fill_lattice), timed
+# with the native inside test and with the numpy one
+MESH_SCENES = ("dragon_bath_dfsph.json", "high_viscosity_bunny.json")
+
+
+def rounded(x) -> list:
+    return [round(float(v), 4) for v in x]
+
+
+def png_pixels(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 of a PNG written by ``io/exporters.write_png`` (one
+    IDAT, 8-bit RGB, filter 0 on every row)."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, kind = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check((depth, kind) == (8, 2), f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    check(bool((rows[:, 0] == 0).all()), f"{path}: a filtered row")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def offline_phase(card: str) -> dict:
+    """Phase 10: the offline pipeline on the card's host. The native
+    helpers' library; the two mesh scenes' load times with each inside test
+    (the same particles from both); the settled flagship
+    ``OFFLINE_STEPS`` steps through the driver with its particle export on
+    (counts zeroed just before, read just after, every kernel of the path
+    launched); the surface and the preview render of the frame it wrote
+    through the root scripts, checked by their files and printed lines.
+    Returns the launches of its run."""
+    from sph_project_tpu_torch import cli, native
+    from sph_project_tpu_torch.core.params import (MATERIAL_FLUID,
+                                                   MATERIAL_RIGID)
+    from sph_project_tpu_torch.geometry import mesh
+    from sph_project_tpu_torch.io.exporters import read_ply
+    from sph_project_tpu_torch.scene import load_scene
+
+    t_phase = time.perf_counter()
+    ok = native.available()
+    say(f"[10] native.available() {ok} ({os.path.relpath(native.LIB_PATH, ROOT)}"
+        f"{'' if ok else ': ' + str(native.load_error())}); {card}")
+    check(ok, f"the native library does not load: {native.load_error()}")
+
+    # ---- the scene build's inside test: native and numpy ------------------
+    for name in MESH_SCENES:
+        seconds, built = {}, {}
+        for mode in ("native", "numpy"):
+            saved = native.mesh_inside
+            if mode == "numpy":
+                native.mesh_inside = mesh.inside_lattice
+            try:
+                t0 = time.perf_counter()
+                scene, state = load_scene(os.path.join(SCENES, name))
+                seconds[mode] = time.perf_counter() - t0
+            finally:
+                native.mesh_inside = saved
+            m = state.particles.material
+            built[mode] = (scene.params.n_pad, int((m == MATERIAL_FLUID).sum()),
+                           int((m == MATERIAL_RIGID).sum()),
+                           state.particles.pos)
+        counts = {k: v[:3] for k, v in built.items()}
+        check(counts["native"] == counts["numpy"],
+              f"{name}: the inside tests fill other counts {counts}")
+        check(counts["native"][1:] == COUNTS[name][:2],
+              f"{name} particle counts {counts['native'][1:]}")
+        check(torch.equal(built["native"][3], built["numpy"][3]),
+              f"{name}: the inside tests place other particles")
+        n_pad, n_fluid, n_rigid = counts["native"]
+        say(f"[10] load_scene {name} (host time): native inside test "
+            f"{seconds['native']:.3f} s, numpy {seconds['numpy']:.3f} s; "
+            f"n_pad {n_pad}, {n_fluid} fluid + {n_rigid} rigid particles "
+            f"from both, positions equal; {card}")
+        del built, scene, state
+
+    # ---- frames from the card: the settled flagship with export on --------
+    out = os.path.join(ROOT, "build", "smoke", "offline")
+    shutil.rmtree(out, ignore_errors=True)
+    frames = os.path.join(out, "frames")
+    os.makedirs(frames)
+    with open(FLAGSHIP) as f:
+        cfg = json.load(f)
+    cfg["Configuration"].update(exportPly=True, exportFrame=True,
+                                outputInterval=OFFLINE_INTERVAL)
+    scene_file = os.path.join(out, "large_scale_dfsph_export.json")
+    with open(scene_file, "w") as f:
+        json.dump(cfg, f, indent=1)
+    argv = ["--scene_file", scene_file, "--quiet", "--output_dir", frames,
+            "--resume", os.path.join(ROOT, "build", "smoke", "flagship",
+                                     "ckpt"),
+            "--steps", str(SETTLE_STEPS + OFFLINE_STEPS),
+            "--log_json", os.path.join(out, "log.jsonl")]
+    zero_counts()
+    t0 = time.perf_counter()
+    sim = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_launches("offline export", sim.params, "pair_pass", launches)
+    check(int(sim.state.step_count) == SETTLE_STEPS + OFFLINE_STEPS,
+          "offline export: step count")
+    del sim
+    torch.cuda.empty_cache()
+    frame_dir = os.path.join(frames, f"{SETTLE_STEPS:06d}")
+    check(sorted(os.listdir(frames)) == [f"{SETTLE_STEPS:06d}"],
+          f"offline export: frames {sorted(os.listdir(frames))}")
+    check(sorted(os.listdir(frame_dir)) == ["particle_object_0.ply",
+                                            "raw_view.png"],
+          f"offline export: files {sorted(os.listdir(frame_dir))}")
+    pts = read_ply(os.path.join(frame_dir, "particle_object_0.ply"))
+    check(pts.shape == (FLAGSHIP_FLUID, 3) and
+          bool(np.isfinite(pts).all()),
+          f"offline export: the PLY holds {pts.shape} particles")
+    p_lo, p_hi = pts.min(axis=0), pts.max(axis=0)
+    say(f"[10] run_simulation_torch {' '.join(argv)}: {OFFLINE_STEPS} steps "
+        f"from the settled checkpoint in {seconds:.1f} s (load, prepare, "
+        f"restore and the export included); frame {SETTLE_STEPS:06d}: "
+        f"{len(pts)} fluid particles, bound {rounded(p_lo)} - {rounded(p_hi)}; "
+        f"launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # ---- the root scripts on that frame ------------------------------------
+    def script(name, *args):
+        cmd = [sys.executable, os.path.join(ROOT, name), "--input_dir",
+               frames, "--num_workers", "1", *args]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        secs = time.perf_counter() - t0
+        say(f"[10] {' '.join(os.path.relpath(c, ROOT) if c.startswith(ROOT) else c for c in cmd[1:])}: "
+            f"exit {r.returncode} in {secs:.1f} s (host time); printed "
+            f"{r.stdout.strip()!r}; {card}")
+        check(r.returncode == 0, f"{name}: exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        check("FAILED" not in r.stdout and
+              r.stdout.split() == ["done", frame_dir],
+              f"{name}: printed {r.stdout!r}")
+        return secs
+
+    t_surface = script("surface_reconstruction_torch.py",
+                       "--radius", str(OFFLINE_RADIUS), "--smoothing-length",
+                       str(OFFLINE_SMOOTHING), "--grid-scale",
+                       str(OFFLINE_GRID_SCALE))
+    obj = os.path.join(frame_dir, "particle_object_0_surface.obj")
+    check(os.path.exists(obj), "surface: no OBJ written")
+    verts, faces = mesh.load_obj(obj)
+    h = OFFLINE_SMOOTHING * OFFLINE_RADIUS
+    v_lo, v_hi = verts.min(axis=0), verts.max(axis=0)
+    dom_lo = np.asarray(cfg["Configuration"]["domainStart"], np.float64)
+    dom_hi = np.asarray(cfg["Configuration"]["domainEnd"], np.float64)
+    say(f"[10] surface: {len(faces)} triangles, {len(verts)} vertices, "
+        f"bound {rounded(v_lo)} - {rounded(v_hi)} (the fluid's bound +- 2h: "
+        f"{rounded(p_lo - 2 * h)} - {rounded(p_hi + 2 * h)}; the domain box "
+        f"{dom_lo.tolist()} - {dom_hi.tolist()})")
+    check(len(faces) > 0 and len(verts) == 3 * len(faces),
+          "surface: no triangles")
+    check(bool(np.isfinite(verts).all()), "surface: vertices not finite")
+    check(bool((v_lo >= dom_lo).all() and (v_hi <= dom_hi).all()),
+          "surface: a vertex outside the domain box")
+    # rounding slack: the OBJ's vertices are float32 written as text
+    slack = 1e-4 * OFFLINE_RADIUS
+    check(bool((v_lo >= p_lo - 2 * h - slack).all()
+               and (v_hi <= p_hi + 2 * h + slack).all()),
+          "surface: wider than the fluid's bound plus 2h")
+
+    t_render = script("render_torch.py", "--size", *map(str, OFFLINE_SIZE),
+                      "--eye", *map(str, OFFLINE_EYE),
+                      "--target", *map(str, OFFLINE_TARGET))
+    png = os.path.join(frame_dir, "render.png")
+    check(os.path.exists(png), "render: no PNG written")
+    img = png_pixels(png)
+    check(img.shape == (OFFLINE_SIZE[1], OFFLINE_SIZE[0], 3),
+          f"render: image of {img.shape}, not {OFFLINE_SIZE}")
+    drawn = float((img != np.uint8(RENDER_BG)).any(axis=-1).mean())
+    say(f"[10] render: {img.shape[1]} x {img.shape[0]} PNG, "
+        f"{drawn:.4f} of its pixels drawn (not background)")
+    check(drawn > 0, "render: every pixel is background")
+
+    r = subprocess.run([sys.executable, os.path.join(ROOT,
+                                                     "blender_test_torch.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"blender_test_torch.py: {r.stderr[-2000:]}")
+    listing = r.stdout.strip().splitlines()
+    say("[10] blender_test_torch.py: " + " | ".join(x.strip() for x in listing))
+    check(f"cuda:0: {torch.cuda.get_device_name(0)}" in r.stdout,
+          "blender_test_torch.py: the card is not listed")
+
+    say(f"[10] offline pipeline on one full-size flagship frame (host "
+        f"times): surface {t_surface:.1f} s, preview render {t_render:.1f} s "
+        f"(grid {OFFLINE_GRID_SCALE} radii, {OFFLINE_SIZE[0]} x "
+        f"{OFFLINE_SIZE[1]}); phase 10: {time.perf_counter() - t_phase:.1f} "
+        f"s; {card}")
+    return launches
 
 
 def main() -> int:
@@ -2949,7 +3190,13 @@ def main() -> int:
         rec["launches"] += launches9.get(rec["name"], 0)
     records.extend(records9)
 
-    # ---- 10. records -------------------------------------------------------
+    # ---- 10. the offline pipeline -------------------------------------------
+    launches10 = offline_phase(card)
+    for rec in records:
+        if not rec["name"].endswith("@moved"):
+            rec["launches"] += launches10.get(rec["name"], 0)
+
+    # ---- 11. records -------------------------------------------------------
     # per engine: every body but the contact pass, the DEM pass and the PBF
     # bodies at the flagship's shapes, the rigid variants, the bodies of a
     # PBF step in 3D and in 2D, phase 8's instances and its DEM pass, and

@@ -6,5 +6,8 @@ it and nothing of JAX. Entry points: ``scene.load_scene`` and
 ``cli.main`` (``run_simulation_torch.py``, ``python -m
 sph_project_tpu_torch``) with checkpoints, exports, telemetry and a live
 viewer in ``io/`` and ``utils/telemetry.py``. The hand-written CUDA kernels
-live in ``csrc/`` and are built with ``nvcc`` on first use.
+live in ``csrc/`` and are built with ``nvcc`` on first use. ``native.py``
+binds the repository's C++ host helpers (``native/``), which the scene
+loader's inside test and the offline scripts at the repository's root
+(``surface_reconstruction_torch.py``, ``render_torch.py``) use.
 """

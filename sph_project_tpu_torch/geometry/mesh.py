@@ -13,15 +13,20 @@ implements the needed subset directly:
   parity counting (the analogue of ``mesh.voxelized(pitch).fill().points`` and
   of the reference's per-point ``mesh.contains`` loop, but vectorized)
 
-Everything here runs once at scene build time on the host, in numpy. The
-JAX package can hand the inside test to its C++ helper; the port always uses
-the vectorised numpy version below.
+Everything here runs once at scene build time on the host. As in the JAX
+package, :func:`fill_lattice` hands the inside test to the C++ helper
+(``native.mesh_inside``) and falls back to the numpy :func:`inside_lattice`
+when the library does not load; both give the same points on the built-in
+meshes (``tests/test_torch_native.py``).
 """
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
+
+from .. import native
 
 
 def load_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -155,5 +160,10 @@ def fill_lattice(verts: np.ndarray, faces: np.ndarray, pitch: float,
     axes = [np.arange(start[i], hi[i], pitch) for i in range(3)]
     grid = np.meshgrid(*axes, indexing="ij")
     pts = np.stack(grid, axis=-1).reshape(-1, 3)
-    keep = inside_lattice(verts, faces, pts)
+    try:
+        keep = native.mesh_inside(verts, faces, pts)
+    except Exception as e:
+        warnings.warn(f"native mesh_inside failed ({type(e).__name__}: {e}); "
+                      "using the numpy inside test", RuntimeWarning)
+        keep = inside_lattice(verts, faces, pts)
     return pts[keep].astype(np.float32)

@@ -244,10 +244,13 @@ def test_cli_imports_no_jax(tmp_path):
 
 
 def test_root_scripts_name_no_jax():
-    """Neither the port's CLI script nor its smoke run imports JAX or the
-    JAX package, on any line."""
+    """Neither the port's root scripts (the CLI, the offline pipeline's
+    surfacing, rendering and device listing) nor its smoke run imports JAX
+    or the JAX package, on any line."""
     bad = []
-    for name in ("run_simulation_torch.py", "chip_smoke.py"):
+    for name in ("run_simulation_torch.py", "chip_smoke.py",
+                 "surface_reconstruction_torch.py", "render_torch.py",
+                 "blender_test_torch.py"):
         with open(os.path.join(ROOT, name)) as f:
             for n, line in enumerate(f, 1):
                 words = line.split()
@@ -256,6 +259,47 @@ def test_root_scripts_name_no_jax():
                                                   "sph_project_tpu"):
                         bad.append(f"{name}:{n}: {line.strip()}")
     assert not bad, "\n".join(bad)
+
+
+# the offline pipeline in a fresh interpreter: a tiny frame (a seeded cloud
+# written by the port's exporter) surfaced and rendered through the port's
+# root scripts' functions, and their device listing run
+_PROBE_OFFLINE = """
+import os, runpy, sys
+import numpy as np
+from sph_project_tpu_torch.io.exporters import write_ply
+import render_torch, surface_reconstruction_torch
+frame = os.path.join(sys.argv[1], "000000")
+os.makedirs(frame)
+rng = np.random.default_rng(0)
+write_ply(os.path.join(frame, "particle_object_1.ply"),
+          rng.uniform(0.4, 0.6, (400, 3)).astype(np.float32))
+args = (frame, 0.01, 3.5, 0.45, 1.0, False)
+assert surface_reconstruction_torch.process_frame(args) == (frame, None)
+assert render_torch.render_frame((frame, (3.0, 2.0, 3.0), (0.5, 0.5, 0.5),
+                                  50.0, (32, 32), "preview", "scene.blend",
+                                  "NONE", 0)) == (frame, None)
+assert sorted(os.listdir(frame)) == ["particle_object_1.ply",
+                                     "particle_object_1_surface.obj",
+                                     "render.png"]
+runpy.run_path("blender_test_torch.py")
+for m in ("native", "geometry.mesh", "io.exporters", "io.render3d"):
+    assert "sph_project_tpu_torch." + m in sys.modules, m
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_offline_pipeline_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE_OFFLINE,
+                          str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "torch.cuda devices:" in out.stdout, out.stdout
+    assert "FOREIGN []" in out.stdout, out.stdout
 
 
 # the spatial decomposition in two spawned ranks (gloo over the CPU): one
