@@ -53,8 +53,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    d_ii and sum d_ij p_j made from a numpy seed); the two kernels against
    each other on both slab states; and the fused gather on the permutation
    of the next step's sort with the cold path's fields and with the warm
-   path's. Prints the error, the kernel's, the plain version's
-   and (for the gather) ``index_select``'s time, the least time the card could
+   path's, with its pack and its unpack (the fields as one (n, W) int32
+   buffer), bit-equal to their plain versions and to ``index_select``, and
+   so again under a uniformly random permutation and on a 2D state of an
+   odd row count. Prints the error, the kernel's, the plain version's
+   and (for the gather) ``index_select``'s time (the gather's also as the
+   device's time alone, behind a sleep on the stream, with its wrapper's
+   host time per call), the least time the card could
    take (``bound_ms``) and the least this method could take
    (``issue_floor_ms``), the candidates each engine tests per pair it keeps
    (counted from that engine's own table), and the window statistics of the
@@ -142,9 +147,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    positions bit-equal, iteration counts equal, overflow 0); both kernels
    on the extended layout (H sentinel rows at each end: -1 in front,
    ``num_cells`` at the back) against their plain versions, counts exact,
-   and against each other; the gather's resort pack and unpack, as rank 1
-   of 4 takes them, bit-equal to ``index_select`` (the unpack gives the
-   rank's slice of the sorted state), timed against their bound; then 4
+   and against each other; the gather's resort pack and unpack
+   (``permute_pack``, ``permute_unpack``: the rows gathered straight into
+   the send buffer and out of the received one), as rank 1 of 4 takes them,
+   bit-equal to ``pack_words`` of ``index_select`` and to their plain
+   versions (the unpack gives the rank's slice of the sorted state), timed
+   as phase 4 times the gather, beside the gather alone, the gather plus a
+   copy of the buffer and their bound; then 4
    ranks spawned on the one card over gloo (``parallel/launch.py``), the
    flagship, ``dragon_bath_dfsph.json`` and
    ``high_viscosity_implicit.json`` 3 steps each through the cell-list
@@ -184,6 +193,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the timing rule and the bound, shared with tools/bench_gather.py
+sys.path.append(os.path.join(ROOT, "tools"))
+from cuda_timing import bound_ms, cuda_ms, led_ms, nbytes  # noqa: E402
 SCENES = os.path.join(ROOT, "data", "scenes")
 FLAGSHIP = os.path.join(SCENES, "large_scale_dfsph.json")
 WARM = dict(dfsph_warm_start=True, dfsph_warm_start_div=True)
@@ -294,10 +306,6 @@ NN_TOL = 1e-5
 BODY_TOL = {"com": 1e-5, "rot": 1e-5, "vel": 1e-4, "omega": 1e-4}
 SPEED_FLOOR = 1e-3
 
-# published H100 SXM peaks: HBM bytes/s and
-# float32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # operations per pair inside the radius: the geometry, R (3 sub) and d2
 # (3 mul, 2 add), plus the body's own, counted from csrc/pair_bodies.cuh (a
 # sqrt or a division counts as one). Candidates an engine tests and rejects
@@ -355,6 +363,12 @@ ENGINES = {
     "pair_slab": ("sph_project_tpu_torch/csrc/pair_slab.cu",
                   "sph_project_tpu/ops/pair_exec.py:204")}
 PERMUTE_REPLACES = "sph_project_tpu/ops/permute.py:48"
+# the gather's timed runs: calls each, with the host's time per call (as
+# every kernel here is timed) and behind a sleep on the stream, without it
+PERMUTE_REPS = 20
+PERMUTE_LED_REPS = 50
+# the gather's other cases in phase 4: a 2D state of an odd row count
+PERMUTE_2D_ROWS = 1_000_003
 # phase 6, the driver at full size. The JAX bench's settle point: 0.75 s of
 # simulated time, 1,250 steps at the flagship's dt of 0.6 ms (bench.py:19-21);
 # the block hits the floor near step 265
@@ -497,26 +511,29 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (after one
-    warm-up unless the caller has made it), from CUDA events."""
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+def gather_times(kernel, plain, library, **more) -> dict:
+    """The gather's times: ``ms``, ``plain_ms`` and ``library_ms`` back to
+    back with the host's time per call, as every kernel here is timed;
+    ``device_ms`` and ``library_device_ms`` behind a sleep on the stream,
+    the device's time alone, and ``host_us``, the kernel wrapper's host time
+    per call. Each of ``more`` is timed both ways too, as ``<name>_ms`` and
+    ``<name>_device_ms``."""
+    out = {"ms": cuda_ms(kernel, PERMUTE_REPS),
+           "plain_ms": cuda_ms(plain, PERMUTE_REPS),
+           "library_ms": cuda_ms(library, PERMUTE_REPS)}
+    out["device_ms"], out["host_us"] = led_ms(kernel, PERMUTE_LED_REPS)
+    out["library_device_ms"] = led_ms(library, PERMUTE_LED_REPS)[0]
+    for name, fn in more.items():
+        out[f"{name}_ms"] = cuda_ms(fn, PERMUTE_REPS)
+        out[f"{name}_device_ms"] = led_ms(fn, PERMUTE_LED_REPS)[0]
+    return out
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def gather_text(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}, the "
+            f"wrapper's host time {t['host_us']:.1f} us a call), plain "
+            f"{t['plain_ms']:.4f} ms, index_select per field "
+            f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f})")
 
 
 def instruction_rate() -> float:
@@ -528,10 +545,6 @@ def instruction_rate() -> float:
     hz = float(out.stdout.strip()) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * SCHEDULERS_PER_SM * 32 * hz
-
-
-def nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def work_of_rows(env, params, fields, produce):
@@ -1297,42 +1310,69 @@ def spatial_phase():
                        stable=True).indices
     local = {k: v[r * nl:(r + 1) * nl].contiguous() for k, v in arrays.items()}
     received = {k: v[mine[order]].contiguous() for k, v in arrays.items()}
-    for tag, idx, src, want in (
-            ("pack", send_idx, local, None),
-            ("unpack", inv, received,
-             {k: v[mine] for k, v in arrays.items()})):
-        out_k = permlib.permute_fields_cuda(idx, src)
-        out_p = permlib.permute_fields_plain(idx, src)
-        lib = {k: torch.index_select(v, 0, idx) for k, v in src.items()}
-        for k in src:
-            check(out_k[k].dtype == src[k].dtype, f"{tag} {k}: dtype")
-            check(torch.equal(out_k[k].view(torch.int32),
-                              lib[k].view(torch.int32)) and
-                  torch.equal(out_k[k].view(torch.int32),
-                              out_p[k].view(torch.int32)),
-                  f"{tag} {k}: not bit-equal to index_select")
-            if want is not None:
-                check(torch.equal(out_k[k].view(torch.int32),
-                                  want[k].view(torch.int32)),
-                      f"unpack {k}: not rank {r}'s sorted rows")
-        ms = cuda_ms(lambda: permlib.permute_fields_cuda(idx, src), 20)
-        plain_ms = cuda_ms(lambda: permlib.permute_fields_plain(idx, src), 20)
-        lib_ms = cuda_ms(lambda: [torch.index_select(v, 0, idx)
-                                  for v in src.values()], 20)
+    words = permlib.pack_words(received)
+    # the packed kernel, its plain version, the gather alone and the gather
+    # with the buffer's copy (the resort before the packed kernel)
+    pack = dict(
+        kernel=lambda: permlib.permute_pack_cuda(send_idx, local),
+        plain=lambda: permlib.permute_pack_plain(send_idx, local),
+        gather=lambda: permlib.permute_fields_cuda(send_idx, local),
+        gather_and_copy=lambda: permlib.pack_words(
+            permlib.permute_fields_cuda(send_idx, local)),
+        idx=send_idx, src=local)
+    unpack = dict(
+        kernel=lambda: permlib.permute_unpack_cuda(inv, words, received),
+        plain=lambda: permlib.permute_unpack_plain(inv, words, received),
+        gather=lambda: permlib.permute_fields_cuda(inv, received),
+        gather_and_copy=lambda: permlib.permute_fields_cuda(
+            inv, permlib.unpack_words(words, received)),
+        idx=inv, src=received)
+    lib = {k: torch.index_select(v, 0, send_idx) for k, v in local.items()}
+    sorted_rows = {k: v[mine] for k, v in arrays.items()}
+    out_k, out_p = pack["kernel"](), pack["plain"]()
+    torch.cuda.synchronize()
+    check(out_k.dtype == torch.int32 and
+          torch.equal(out_k, permlib.pack_words(lib)) and
+          torch.equal(out_k, out_p),
+          "pack: not bit-equal to pack_words of index_select")
+    out_k, out_p = unpack["kernel"](), unpack["plain"]()
+    torch.cuda.synchronize()
+    for k in arrays:
+        check(out_k[k].dtype == arrays[k].dtype and
+              torch.equal(out_k[k].view(torch.int32),
+                          sorted_rows[k].view(torch.int32)) and
+              torch.equal(out_k[k].view(torch.int32),
+                          torch.index_select(received[k], 0, inv).view(
+                              torch.int32)) and
+              torch.equal(out_k[k].view(torch.int32),
+                          out_p[k].view(torch.int32)),
+              f"unpack {k}: not rank {r}'s sorted rows")
+    del lib, sorted_rows, out_k, out_p
+    for tag, case in (("pack", pack), ("unpack", unpack)):
+        idx, src = case["idx"], case["src"]
+        t = gather_times(case["kernel"], case["plain"],
+                         lambda: [torch.index_select(v, 0, idx)
+                                  for v in src.values()],
+                         gather=case["gather"],
+                         gather_and_copy=case["gather_and_copy"])
         n_bytes = 2 * nbytes(src.values()) + nbytes([idx])
         b_ms, b_by = bound_ms(n_bytes, 0)
         say(f"[9] permute, resort {tag} (rank {r} of {D}: {nl} rows, "
-            f"{len(src)} fields; sends {send_counts}, receives "
-            f"{recv_counts}): bit-equal to index_select; kernel {ms:.3f} ms,"
-            f" plain {plain_ms:.3f} ms, index_select per field "
-            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{n_bytes / 1e6:.1f} MB)")
+            f"{len(src)} fields, one (n, "
+            f"{sum(v[0].numel() for v in src.values())}) int32 buffer; sends "
+            f"{send_counts}, receives {recv_counts}): bit-equal to "
+            f"index_select and to the plain version; {gather_text(t)}; the "
+            f"gather alone {t['gather_ms']:.4f} ms (device "
+            f"{t['gather_device_ms']:.4f}), the gather and the buffer's copy "
+            f"{t['gather_and_copy_ms']:.4f} ms (device "
+            f"{t['gather_and_copy_device_ms']:.4f}); bound {b_ms:.4f} ms "
+            f"({b_by}: {n_bytes / 1e6:.1f} MB)")
         records.append(dict(
             name=f"permute@{tag}", route="cuda",
             source="sph_project_tpu_torch/csrc/permute.cu",
-            replaces=PERMUTE_REPLACES, launches=0, max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, fields=len(src)))
+            replaces=PERMUTE_REPLACES, launches=0, max_abs_err=0.0,
+            bound_ms=b_ms, bound_by=b_by, fields=len(src), **t))
+    del pack, unpack, words
     del state, kept, p, arrays, local, received, perm, mine, order
     torch.cuda.empty_cache()
     dist.destroy_process_group()
@@ -2026,9 +2066,34 @@ def main() -> int:
                     f"candidates {longest}, max_abs_err {err:.3e}, counts "
                     f"exact")
 
+    def gather_held(tag, perm, arrays):
+        """The gather, its pack and its unpack (the fields packed as the
+        resort packs them) on the card, each bit-equal to its plain version
+        and to ``index_select``, dtypes kept."""
+        lib = {k: torch.index_select(v, 0, perm) for k, v in arrays.items()}
+        words = permlib.pack_words(arrays)
+        outs = {"gather": (permlib.permute_fields_cuda(perm, arrays),
+                           permlib.permute_fields_plain(perm, arrays)),
+                "unpack": (permlib.permute_unpack_cuda(perm, words, arrays),
+                           permlib.permute_unpack_plain(perm, words, arrays))}
+        packed = permlib.permute_pack_cuda(perm, arrays)
+        torch.cuda.synchronize()
+        check(torch.equal(packed, permlib.pack_words(lib)) and
+              torch.equal(packed, permlib.permute_pack_plain(perm, arrays)),
+              f"{tag}: the pack is not bit-equal")
+        for use, (out_k, out_p) in outs.items():
+            for k in arrays:
+                check(out_k[k].dtype == arrays[k].dtype and
+                      torch.equal(out_k[k].view(torch.int32),
+                                  lib[k].view(torch.int32)) and
+                      torch.equal(out_k[k].view(torch.int32),
+                                  out_p[k].view(torch.int32)),
+                      f"{tag}: {use} of {k} not bit-equal")
+
     def check_permute(sim):
         """The fused gather on the next step's sort of ``sim``'s state:
-        advance positions as the step does, then bin. Returns its numbers."""
+        advance positions as the step does, then bin. Returns its numbers,
+        and the fields and the permutation."""
         params, st = sim.params, sim.state
         n = params.n_pad
         p2 = common.update_fluid_position(st.particles, st.rigid, params)
@@ -2041,28 +2106,48 @@ def main() -> int:
         arrays.update({k: getattr(st, k) for k in extras})
         arrays["cells"] = cells
         moved = int((perm != torch.arange(n, device=perm.device)).sum())
-        out_k = permlib.permute_fields_cuda(perm, arrays)
-        out_p = permlib.permute_fields_plain(perm, arrays)
-        torch.cuda.synchronize()
-        for k in arrays:
-            check(out_k[k].dtype == arrays[k].dtype, f"permute {k}: dtype")
-            check(torch.equal(out_k[k].view(torch.int32),
-                              out_p[k].view(torch.int32)),
-                  f"permute {k}: not bit-equal")
-        ms = cuda_ms(lambda: permlib.permute_fields_cuda(perm, arrays), 20)
-        plain_ms = cuda_ms(lambda: permlib.permute_fields_plain(perm, arrays),
-                           20)
-        lib_ms = cuda_ms(lambda: [torch.index_select(v, 0, perm)
-                                  for v in arrays.values()], 20)
+        gather_held(f"permute, {len(arrays)} fields", perm, arrays)
+        t = gather_times(
+            lambda: permlib.permute_fields_cuda(perm, arrays),
+            lambda: permlib.permute_fields_plain(perm, arrays),
+            lambda: [torch.index_select(v, 0, perm) for v in arrays.values()])
         n_bytes = 2 * nbytes(arrays.values()) + nbytes([perm])
         b_ms, b_by = bound_ms(n_bytes, 0)
-        say(f"[4] permute: {len(arrays)} fields, {moved} of {n} rows move, "
-            f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"index_select per field {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}: {n_bytes / 1e6:.1f} MB)")
-        return dict(fields=len(arrays), max_abs_err=0.0, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms)
+        say(f"[4] permute: {len(arrays)} fields "
+            f"({sum(v[0].numel() for v in arrays.values())} words a row), "
+            f"{moved} of {n} rows move; the gather, its pack and its unpack "
+            f"bit-equal to their plain versions and to index_select; "
+            f"{gather_text(t)}, bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes / 1e6:.1f} MB)")
+        return dict(fields=len(arrays), max_abs_err=0.0, bound_ms=b_ms,
+                    bound_by=b_by, **t), arrays
+
+    def check_permute_cases(arrays):
+        """The gather's other cases: the flagship's fields under a uniformly
+        random permutation, and a 2D state (2-word ``pos`` and ``vel``, the
+        flagship's other fields) of an odd row count under a near-identity
+        and a random permutation, from a numpy seed."""
+        n = next(iter(arrays.values())).shape[0]
+        rng = np.random.default_rng(12)
+        rand = torch.from_numpy(rng.permutation(n)).cuda()
+        gather_held("permute, random permutation", rand, arrays)
+        m = PERMUTE_2D_ROWS
+        state_2d = {}
+        for k, v in arrays.items():
+            shape = (m,) + ((2,) if k in ("pos", "vel") else tuple(v.shape[1:]))
+            bits = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+            state_2d[k] = torch.from_numpy(bits.astype(np.int32)).cuda().view(
+                v.dtype)
+        near = np.argsort(np.arange(m) + 2.5 * rng.random(m), kind="stable")
+        for label, perm in (("near-identity", near), ("random",
+                                                     rng.permutation(m))):
+            gather_held(f"permute, 2D state of {m} rows, {label}",
+                        torch.from_numpy(perm).cuda(), state_2d)
+        say(f"[4] permute: the flagship's {len(arrays)} fields under a random "
+            f"permutation of {n} rows, and a 2D state of {m} rows (2-word pos "
+            f"and vel) under a near-identity and a random permutation: the "
+            f"gather, its pack and its unpack bit-equal to their plain "
+            f"versions and to index_select")
 
 
     # ---- 4b. the rigid-body variants ------------------------------------
@@ -2276,11 +2361,15 @@ def main() -> int:
     for label in VISCOUS_MEASURED:
         check_engine(sims.pop(label), VISCOUS_BODIES)
         torch.cuda.empty_cache()
+    cold_rec, cold_arrays = check_permute(cold_sim)
+    warm_rec, _ = check_permute(slab_sim)
+    check_permute_cases(cold_arrays)
+    del cold_arrays
     records.append(dict(
         name="permute", route="cuda",
         source="sph_project_tpu_torch/csrc/permute.cu",
         replaces=PERMUTE_REPLACES, launches=total_launches["permute"],
-        **check_permute(cold_sim), warm_path=check_permute(slab_sim)))
+        **cold_rec, warm_path=warm_rec))
     del sims, cold_sim, slab_sim
     torch.cuda.empty_cache()
 

@@ -25,7 +25,6 @@ operation raises.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Sequence
 
 import torch
@@ -141,26 +140,4 @@ def all_to_all(send: torch.Tensor, send_counts: Sequence[int],
                            input_split_sizes=list(send_counts),
                            group=mesh.group)
     return out.to(send.device)
-
-
-def pack_words(fields: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The rows of every field (32-bit dtypes, equal first axes) side by
-    side as int32 words, (n, W): one buffer for one collective, the bits
-    kept."""
-    n = next(iter(fields.values())).shape[0]
-    return torch.cat([v.reshape(n, -1).contiguous().view(torch.int32)
-                      for v in fields.values()], 1)
-
-
-def unpack_words(words: torch.Tensor,
-                 like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`pack_words`: fields of ``like``'s dtypes and row
-    shapes, each contiguous, with ``words``' rows."""
-    out, off = {}, 0
-    for k, v in like.items():
-        w = math.prod(v.shape[1:])
-        out[k] = words[:, off:off + w].contiguous().view(v.dtype).reshape(
-            (words.shape[0],) + tuple(v.shape[1:]))
-        off += w
-    return out
 

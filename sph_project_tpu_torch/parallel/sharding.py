@@ -22,6 +22,7 @@ from .. import bridge
 from .. import sim as simlib
 from ..core.params import SimParams
 from ..core.state import SimState
+from ..ops import permute as permlib
 from . import collectives
 from .collectives import Mesh
 
@@ -75,8 +76,8 @@ def gather_state(state: SimState, mesh: Mesh, params: SimParams) -> SimState:
     rows = particle_paths(state)
     arrays = dict(bridge.walk(state))
     like = {p: arrays[p] for p in rows}
-    words = collectives.all_gather(collectives.pack_words(like), mesh)
-    arrays.update(collectives.unpack_words(words, like))
+    words = collectives.all_gather(permlib.pack_words(like), mesh)
+    arrays.update(permlib.unpack_words(words, like))
     return bridge.build(arrays).replace(
         cached_neighbors=state.cached_neighbors)
 

@@ -123,11 +123,11 @@ def halo_extend(x: torch.Tensor, H: int, mesh: Mesh) -> torch.Tensor:
 def extend_fields(fields: dict, H: int, mesh: Mesh) -> dict:
     """:func:`halo_extend` of every field (32-bit dtypes), in one exchange:
     the fields packed into one buffer per direction (:124)."""
-    head = collectives.pack_words({k: v[:H] for k, v in fields.items()})
-    tail = collectives.pack_words({k: v[-H:] for k, v in fields.items()})
+    head = permlib.pack_words({k: v[:H] for k, v in fields.items()})
+    tail = permlib.pack_words({k: v[-H:] for k, v in fields.items()})
     from_left, from_right = collectives.exchange(head, tail, mesh)
-    left = collectives.unpack_words(from_left, fields)
-    right = collectives.unpack_words(from_right, fields)
+    left = permlib.unpack_words(from_left, fields)
+    right = permlib.unpack_words(from_right, fields)
     return {k: torch.cat([left[k], v, right[k]]) for k, v in fields.items()}
 
 
@@ -240,10 +240,10 @@ def global_resort(state: SimState, params: SimParams, mesh: Mesh) -> SimState:
     """Sort the carried per-particle arrays by grid cell over the whole mesh
     (:293-295): this rank's rows of the globally sorted state, with their
     sorted cell ids in ``cached_neighbors``. The same rows and order as
-    ``sim.sort_state`` on one device. The rows are packed for their
-    destinations and unpacked into sorted order by the gather kernel
-    (``ops/permute.py``), int dtypes kept; between the two, one
-    all-to-all."""
+    ``sim.sort_state`` on one device. The gather kernel (``ops/permute.py``)
+    packs the rows for their destinations straight into the send buffer and
+    unpacks the received buffer straight into sorted fields, int dtypes
+    kept; between the two, one all-to-all."""
     p = state.particles
     cells = nblib.flat_cell_ids(p.pos, p.material != MATERIAL_NONE, params)
     send_idx, send_counts, recv_counts, inv = resort_plan(
@@ -252,10 +252,9 @@ def global_resort(state: SimState, params: SimParams, mesh: Mesh) -> SimState:
     arrays = {k: getattr(p, k) for k in keys}
     arrays.update({k: getattr(state, k) for k in extras})
     arrays["cells"] = cells
-    packed = permlib.permute_fields(send_idx, arrays)
-    recv = collectives.all_to_all(collectives.pack_words(packed),
+    recv = collectives.all_to_all(permlib.permute_pack(send_idx, arrays),
                                   send_counts, recv_counts, mesh)
-    out = permlib.permute_fields(inv, collectives.unpack_words(recv, arrays))
+    out = permlib.permute_unpack(inv, recv, arrays)
     cells_sorted = out.pop("cells")
     state = state.replace(**{k: out.pop(k) for k in extras})
     return state.replace(particles=p.replace(**out),
