@@ -5,7 +5,11 @@ Run from the root of a checkout, on a host with one CUDA device:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and skipped):
+Phases (any failure exits non-zero; nothing is caught and skipped). Every
+``Simulation`` on the card captures its step into a CUDA graph, the solver
+loops conditional WHILE nodes (``ops/graph_loop.py``, ``csrc/graph_loop.cu``),
+and steps by replaying it (the shape-matching backend steps eagerly); launch
+counts are read with the loop iterations of the replays added in:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
@@ -172,7 +176,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the fluid's bound plus 2h, the PNG has the size asked for and pixels
    drawn; the scripts' host times, and ``blender_test_torch.py`` listing
    the card;
-11. one JSON line with every kernel record (its launches count phases 6's,
+11. the step as one device program: on the flagship (DFSPH cold and warm
+   through each kernel, WCSPH, PCISPH, IISPH from the prepared state, DFSPH
+   cold and warm from phase 6's settled checkpoint), ``dragon_bath_dfsph``
+   through the fluid's arrival, ``high_viscosity_implicit``, ``pbf_3d``,
+   ``pbf_2d`` under DFSPH through its block's landing and
+   ``buckling_emitter``: the same steps from the same state graphed
+   (``Simulation.step``) and eager (``get_step_fn`` called directly), every
+   state tensor and diagnostic bit-equal and the iteration and CG counts
+   equal every step; ``Simulation.run`` under the sync debug mode set to
+   raise; per path and mode the wall ms, device busy ms, idle share and
+   kernels a step (``tools/profile_torch_step.py``), the warm-up step's and
+   the capture's host ms and the device memory of the simulation, with the
+   card line; the launch counts of replays against a profiler trace on two
+   paths. Phase 4 checks the WHILE node's condition kernel against the
+   host loop (``graph_while``);
+12. one JSON line with every kernel record (its launches count phases 6's,
    8's, 9's and 10's runs too), the card line again, then the result.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
@@ -486,6 +505,56 @@ PER_COMPONENT_OPS = {"density": 0, "alpha": 2, "nonpressure": 7,
                      "pcisph_density_pred": 3, "iisph_dii": 2, "iisph_aii": 6,
                      "iisph_density_star": 3, "iisph_dij_pj": 2,
                      "iisph_sum_i": 9, "visc_prep": 6, "visc_matvec": 4}
+# phase 11, the step as one device program: (label, scene, overrides, start,
+# steps) run graphed (Simulation.step, a replay) and eager (get_step_fn
+# called directly) from the same state, "prepared" (load_scene +
+# Simulation) or "settled" (phase 6's checkpoint of the flagship), held
+# bit-equal step for step; dragon_bath_dfsph through the fluid's arrival
+# (the first fluid force at step 192), pbf_2d through its block's landing
+# (step 18); buckling_emitter for its peak memory (2,288,640 rows)
+GRAPH_PATHS = (
+    ("flagship DFSPH cold, cell-list", FLAGSHIP, {}, "prepared", 3),
+    ("flagship DFSPH warm, cell-list", FLAGSHIP, WARM, "prepared", 3),
+    ("flagship DFSPH cold, slab-window", FLAGSHIP, SLAB, "prepared", 3),
+    ("flagship DFSPH warm, slab-window", FLAGSHIP, dict(WARM, **SLAB),
+     "prepared", 3),
+    ("flagship WCSPH", FLAGSHIP, dict(simulation_method="wcsph"), "prepared",
+     3),
+    ("flagship PCISPH", FLAGSHIP, dict(simulation_method="pcisph"),
+     "prepared", 3),
+    ("flagship IISPH", FLAGSHIP, dict(simulation_method="iisph"), "prepared",
+     3),
+    ("flagship settled DFSPH cold, cell-list", FLAGSHIP, {}, "settled", 4),
+    ("flagship settled DFSPH warm, cell-list", FLAGSHIP, WARM, "settled", 4),
+    ("dragon_bath_dfsph through the arrival",
+     os.path.join(SCENES, "dragon_bath_dfsph.json"), {}, "prepared", 220),
+    ("high_viscosity_implicit",
+     os.path.join(SCENES, "high_viscosity_implicit.json"), {}, "prepared", 4),
+    ("pbf_3d", os.path.join(SCENES, "pbf_3d.json"), {}, "prepared", 4),
+    ("pbf_2d DFSPH", os.path.join(SCENES, "pbf_2d.json"),
+     dict(simulation_method="dfsph"), "prepared", 20),
+    ("buckling_emitter", os.path.join(SCENES, "buckling_emitter.json"), {},
+     "prepared", 2))
+# steps each mode is timed and profiled from the state the compared steps
+# left, and replays run under the sync debug mode
+GRAPH_MEASURE_STEPS = 5
+GRAPH_RUN_STEPS = 3
+# the path whose launch counts are held against a profiler trace of its
+# replays, and one whose trace is printed beside its counts, a replay a
+# trace: on the H100 its traces have missed a few kernels of a replay
+# whose counts the CG's own iteration counts confirm (phase 3 holds the
+# matvec's launches to them every step)
+GRAPH_TRACED = ("flagship settled DFSPH cold, cell-list",)
+GRAPH_TRACE_SHOWN = ("high_viscosity_implicit",)
+# the condition kernel's check: iteration counts of a toy loop, and the
+# iterations its replay is timed over
+GRAPH_TOY_COUNTS = (0, 1, 37)
+GRAPH_TOY_ITERS = 2000
+GRAPH_WHILE_SOURCE = "sph_project_tpu_torch/csrc/graph_loop.cu"
+# the JAX package's lax.while_loop the WHILE node stands for (no Pallas
+# kernel: the loop of the density corrector, as the others)
+GRAPH_WHILE_REPLACES = "sph_project_tpu/solvers/dfsph.py:427"
+
 # rigid_dem: the material and object compares (3) on a pair, and on a
 # touching one the distance (sqrt), the penetration, 1/max(dist, 1e-9), the
 # normal speed (2D: 5, 3D: 8 with its product), the force's two terms and
@@ -755,18 +824,38 @@ def median(xs) -> float:
 
 
 def zero_counts() -> None:
+    """Every launch count 0, the loop iterations of earlier replays
+    dropped."""
+    from sph_project_tpu_torch.ops import graph_loop
     from sph_project_tpu_torch.ops import pair_kernels as pk
     from sph_project_tpu_torch.ops import permute as permlib
+    graph_loop.flush_launches()
     for k in pk.launches:
         pk.launches[k] = 0
     permlib.launches["permute"] = 0
+    graph_loop.launches["graph_while"] = 0
 
 
 def read_counts() -> dict:
+    """The launch counts, the loop iterations of the replays so far added
+    in (``graph_loop.flush_launches``)."""
+    from sph_project_tpu_torch.ops import graph_loop
     from sph_project_tpu_torch.ops import pair_kernels as pk
     from sph_project_tpu_torch.ops import permute as permlib
     torch.cuda.synchronize()
-    return dict(pk.launches, permute=permlib.launches["permute"])
+    graph_loop.flush_launches()
+    return dict(pk.launches, permute=permlib.launches["permute"],
+                graph_while=graph_loop.launches["graph_while"])
+
+
+def loops_on_device(params) -> bool:
+    """Whether a graphed step of ``params`` has WHILE nodes, whose condition
+    kernel (``graph_while``) then launches: the DFSPH, PCISPH and IISPH
+    correctors and the implicit viscosity's CG."""
+    from sph_project_tpu_torch import sim as simlib
+    return simlib.graphed(params) and (
+        params.simulation_method in ("dfsph", "pcisph", "iisph")
+        or params.viscosity_method == "implicit")
 
 
 def launch_keys(params, engine: str) -> set:
@@ -783,6 +872,8 @@ def check_launches(label: str, params, engine: str, launches: dict) -> None:
     """Every kernel of the path launched, and no other."""
     expected = launch_keys(params, engine)
     expected.add("permute")
+    if loops_on_device(params):
+        expected.add("graph_while")
     for k, v in launches.items():
         check((v > 0) == (k in expected),
               f"{label}: kernel {k} launched {v} times")
@@ -808,26 +899,40 @@ def check_band(label: str, log: list, rho0: float) -> float:
 
 
 class WrenchProbe:
-    """Within ``with``: for every rigid body step, the magnitude of each
-    dynamic body's accumulated SPH force, read before the step consumes it
-    (the force of the fluid: gravity and contact enter inside the step).
-    Kept on the card and read once at the end."""
+    """Within ``with``: for every step of a ``Simulation``, the magnitude of
+    each dynamic body's accumulated SPH force, read before the rigid body
+    step consumes it (the force of the fluid: gravity and contact enter
+    inside the step). The probe in the body step writes it into a tensor
+    (under a captured step the graph's, which each replay rewrites), and a
+    copy of that tensor is kept after each step; read once at the end."""
 
     def __enter__(self):
+        from sph_project_tpu_torch import sim as simlib
+        from sph_project_tpu_torch.core.state import constant
         from sph_project_tpu_torch.rigid import integrator
         self.integrator, self.orig = integrator, integrator.rigid_body_step
-        self.forces = []
+        self.simlib, self.orig_step = simlib, simlib.Simulation.step
+        self.forces, self.slot = [], None
 
         def probe(p, rigid, params, **kw):
-            bodies = list(params.contact_channels)
-            self.forces.append(rigid.force[bodies].norm(dim=1))
+            # the bodies' rows, a device constant (no copy under a capture)
+            bodies = constant(tuple(params.contact_channels), torch.int64,
+                              rigid.force.device)
+            self.slot = rigid.force.index_select(0, bodies).norm(dim=1)
             return self.orig(p, rigid, params, **kw)
 
+        def step(sim):
+            diag = self.orig_step(sim)
+            self.forces.append(self.slot.clone())
+            return diag
+
         integrator.rigid_body_step = probe
+        simlib.Simulation.step = step
         return self
 
     def __exit__(self, *exc):
         self.integrator.rigid_body_step = self.orig
+        self.simlib.Simulation.step = self.orig_step
 
     def table(self) -> np.ndarray:
         """(steps, bodies) of force magnitudes, N."""
@@ -1137,7 +1242,9 @@ def spatial_phase():
         zero_counts()
         _, diags, ms, cg = steps_of(
             step, None, scene.params.viscosity_method == "implicit")
-        kernels = {k for k, v in read_counts().items() if v}
+        # the decomposed step is eager: its loops read their flags on the host
+        kernels = {k for k, v in read_counts().items()
+                   if v and k != "graph_while"}
         p, rigid = sim.state.particles, sim.state.rigid
         out = dict(fluid=sorted_fluid(p.pos.cpu(), p.material.cpu()),
                    rigid={k: getattr(rigid, k).cpu().numpy()
@@ -1665,6 +1772,248 @@ def offline_phase(card: str) -> dict:
     return launches
 
 
+def graph_while_record(card: str) -> dict:
+    """The condition kernel (``csrc/graph_loop.cu``) against its plain
+    version, the host loop: a toy loop ``i < k`` (``i + 1``) captured and
+    replayed, and run on the host, for each k of GRAPH_TOY_COUNTS; iteration
+    counts and carries must agree. Timed as an iteration of the WHILE node
+    (the condition kernel, the test, the add and the copy back, on the
+    card) against an iteration of the host loop (the same kernels and one
+    read of the flag). Returns its kernel record (launches 0: the main
+    paths' are added by the caller)."""
+    from sph_project_tpu_torch.ops import graph_loop
+
+    def toy(k):
+        """The loop's function; its tensors stay alive with it (a graph
+        reads them at every replay)."""
+        limit = torch.full((), k, dtype=torch.int32, device="cuda")
+        start = torch.zeros((), dtype=torch.int32, device="cuda")
+        acc = torch.zeros(8, device="cuda")
+
+        def run():
+            return graph_loop.while_loop(
+                lambda c: c[0] < limit,
+                lambda c: (c[0] + 1, c[1] + 0.5), (start, acc))
+        return run
+
+    err = 0.0
+    with graph_loop.uncounted():
+        for k in GRAPH_TOY_COUNTS:
+            fn = toy(k)
+            graph, counts, out = graph_loop.capture(fn)
+            graph.replay()
+            graph.replay()
+            plain = fn()
+            torch.cuda.synchronize()
+            # the condition kernel's count of the iterations of both replays
+            iters = int(counts.loops[0][0]) // 2
+            err = max(err, abs(iters - k), abs(int(out[0]) - int(plain[0])),
+                      float((out[1] - plain[1]).abs().max()))
+            check(iters == k and int(out[0]) == k,
+                  f"graph_while: {iters} iterations for {k}")
+            del graph, counts, out
+        fn = toy(GRAPH_TOY_ITERS)
+        graph, counts, _ = graph_loop.capture(fn)
+        ms = cuda_ms(graph.replay, 5) / GRAPH_TOY_ITERS
+        plain_ms = cuda_ms(fn, 2) / GRAPH_TOY_ITERS
+        del graph, counts, fn
+    # the kernel reads the flag (4 bytes) and reads and writes the count (8)
+    b_ms, b_by = bound_ms(20, 0)
+    say(f"[4] graph_while (the WHILE node's condition kernel): iteration "
+        f"counts and carries of the toy loop equal to the host loop's for "
+        f"k in {list(GRAPH_TOY_COUNTS)} (max_abs_err {err}); an iteration "
+        f"{ms * 1e3:.3f} us in a replay, {plain_ms * 1e3:.3f} us on the host "
+        f"loop, bound {b_ms:.2e} ms ({b_by}); {card}")
+    return dict(name="graph_while", route="cuda", source=GRAPH_WHILE_SOURCE,
+                replaces=GRAPH_WHILE_REPLACES, launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def traced_launches(counted: dict, trace) -> tuple:
+    """(launch counts, kernels a profiler trace saw) of the pair kernels,
+    the gather and the condition kernel."""
+    seen = {"pair": 0, "permute": 0, "graph_while": 0}
+    for e in trace.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "pair_kernel<" in e.name or "slab_kernel<" in e.name:
+            seen["pair"] += 1
+        elif "permute_kernel" in e.name:
+            seen["permute"] += 1
+        elif "while_cond_kernel" in e.name:
+            seen["graph_while"] += 1
+    want = {"pair": sum(v for k, v in counted.items()
+                        if k.startswith("pair_")),
+            "permute": counted["permute"],
+            "graph_while": counted["graph_while"]}
+    return want, seen
+
+
+def settled_checkpoint() -> str:
+    """Phase 6's checkpoint of the flagship at the bench's settle point,
+    made here through the driver if no run made it yet."""
+    from sph_project_tpu_torch import cli
+    out = os.path.join(ROOT, "build", "smoke", "flagship")
+    ckpt = os.path.join(out, "ckpt")
+    if not os.path.exists(os.path.join(ckpt, "state.npz")):
+        cli.main(["--scene_file", FLAGSHIP, "--no-export", "--quiet",
+                  "--output_dir", out, "--steps", str(SETTLE_STEPS),
+                  "--checkpoint_interval", str(SETTLE_STEPS - 1)])
+    return ckpt
+
+
+def graph_phase(card: str) -> dict:
+    """Phase 11: the step as one device program. For each of GRAPH_PATHS:
+    the captured step's replays and the eager step from the same state,
+    every state tensor and diagnostic bit-equal and the iteration and CG
+    counts equal every step; ``Simulation.run`` under the sync debug mode
+    (an error on any synchronisation); wall, device busy, idle share and
+    kernels a step of both modes (``tools/profile_torch_step.py``
+    ``measure``), the warm-up step's and the capture's host ms, the
+    device memory the simulation holds (its state and graph pools) and the
+    peak of its construction, and of the eager steps. On GRAPH_TRACED the
+    launch counts of replays are held against a profiler trace; on
+    GRAPH_TRACE_SHOWN both are printed, a replay a trace. Returns the
+    numbers by path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import profile_torch_step as prof
+    from sph_project_tpu_torch import sim as simlib
+    from sph_project_tpu_torch.io import checkpoint
+    from sph_project_tpu_torch.scene import load_scene
+    from sph_project_tpu_torch.solvers import viscosity_cg
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    ckpt = settled_checkpoint()
+    prof.attach_profiler()
+    out = {}
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def cg(params):
+        return (int(viscosity_cg.last_solve["cg_iters"]),) \
+            if params.viscosity_method == "implicit" else ()
+
+    for label, scene_file, overrides, start, steps in GRAPH_PATHS:
+        t0 = time.perf_counter()
+        scene, state = load_scene(scene_file, **overrides)
+        params = scene.params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        sim = simlib.Simulation(scene, state)
+        check(sim._graph is not None, f"{label}: the step was not captured")
+        if start == "settled":
+            sim.state = checkpoint.restore(ckpt, sim.state, params)
+        torch.cuda.synchronize()
+        build_peak = (torch.cuda.max_memory_allocated() - base) / gib
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_reserved() - base_reserved) / gib
+        step_fn = simlib.get_step_fn(params)
+        eager = simlib._cloned(sim.state)
+        iters = []
+        for s in range(steps):
+            dg = sim.step()
+            cg_g = cg(params)
+            eager, de = step_fn(eager)
+            cg_e = cg(params)
+            check(set(dg) == set(de) and all(same(dg[k], de[k]) for k in de),
+                  f"{label}, step {s}: diagnostics differ: "
+                  f"{[k for k in de if not same(dg[k], de[k])]}")
+            differ = [".".join(p) for (p, a), (_, b) in zip(
+                simlib._tensors(sim.state), simlib._tensors(eager))
+                if not same(a, b)]
+            check(not differ, f"{label}, step {s}: graphed and eager states "
+                  f"differ in {differ}")
+            its = tuple(int(dg[k]) for k in ("solver_iters", "div_iters")
+                        if k in dg)
+            check(its == tuple(int(de[k]) for k in ("solver_iters",
+                                                    "div_iters") if k in de)
+                  and cg_g == cg_e, f"{label}, step {s}: iterations "
+                  f"{its + cg_g} vs {cg_e}")
+            iters.append(its + cg_g)
+        del eager
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ran = sim.run(GRAPH_RUN_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(all(v.shape == (GRAPH_RUN_STEPS,) for v in ran.values()),
+              f"{label}: run({GRAPH_RUN_STEPS}) diagnostics")
+        check(bool(torch.isfinite(sim.state.particles.pos).all()),
+              f"{label}: positions not finite")
+        # both modes timed and profiled from the state the runs left
+        from_here = simlib._cloned(sim.state)
+        implicit = params.viscosity_method == "implicit"
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m_e = prof.measure(prof.eager_step(params, from_here),
+                           GRAPH_MEASURE_STEPS, implicit)
+        eager_peak = (torch.cuda.max_memory_allocated() - base) / gib
+        m_g = prof.measure(prof.graphed_step(sim, from_here),
+                           GRAPH_MEASURE_STEPS, implicit)
+        check(m_e["iters"] == m_g["iters"], f"{label}: measured steps "
+              f"iterate differently: {m_e['iters']} vs {m_g['iters']}")
+        if label in GRAPH_TRACED + GRAPH_TRACE_SHOWN:
+            per = 1 if label in GRAPH_TRACE_SHOWN else GRAPH_MEASURE_STEPS
+            sim.state = from_here
+            for r in range(GRAPH_MEASURE_STEPS // per):
+                zero_counts()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as trace:
+                    for _ in range(per):
+                        sim.step()
+                    torch.cuda.synchronize()
+                want, seen = traced_launches(read_counts(), trace)
+                if label in GRAPH_TRACED:
+                    check(seen == want, f"{label}: launch counts {want} "
+                          f"against the profiler's kernels {seen}")
+                say(f"[11] {label}: launch counts of {per} replay(s) "
+                    f"{want}, the profiler's kernel trace {seen}"
+                    f"{' (held equal)' if label in GRAPH_TRACED else ''}")
+        rec = dict(
+            steps=steps, iters=iters, warmup_ms=sim.warmup_ms,
+            capture_ms=sim.capture_ms, held_gib=held, build_peak_gib=build_peak,
+            eager_peak_gib=eager_peak,
+            **{f"{mode}_{k}": m[k] for mode, m in (("eager", m_e),
+                                                   ("graphed", m_g))
+               for k in ("wall_ms_per_step", "profiled_wall_ms_per_step",
+                         "busy_ms_per_step", "idle_share",
+                         "kernels_per_step")},
+            measured_iters=m_g["iters"])
+        out[label] = rec
+        say(f"[11] {label}: {steps} steps graphed and eager bit-equal "
+            f"(state, diagnostics, iterations {iters}); run("
+            f"{GRAPH_RUN_STEPS}) with no host synchronisation; warm-up "
+            f"step {sim.warmup_ms:.1f} ms, capture {sim.capture_ms:.1f} ms; "
+            f"memory held {held:.3f} GiB (state and graph pools), peak "
+            f"{build_peak:.3f} GiB building it, eager steps' peak "
+            f"{eager_peak:.3f} GiB; per step over {GRAPH_MEASURE_STEPS} "
+            f"(iterations {m_g['iters']}): graphed wall "
+            f"{m_g['wall_ms_per_step']:.3f} ms (profiled run "
+            f"{m_g['profiled_wall_ms_per_step']:.3f}), busy "
+            f"{m_g['busy_ms_per_step']:.3f} ms, idle "
+            f"{m_g['idle_share']:.3f}, {m_g['kernels_per_step']:.1f} kernels; "
+            f"eager wall {m_e['wall_ms_per_step']:.3f} ms (profiled run "
+            f"{m_e['profiled_wall_ms_per_step']:.3f}), busy "
+            f"{m_e['busy_ms_per_step']:.3f} ms, idle "
+            f"{m_e['idle_share']:.3f}, {m_e['kernels_per_step']:.1f} kernels "
+            f"({time.perf_counter() - t0:.1f} s; {card})")
+        del sim, from_here
+        torch.cuda.empty_cache()
+    say(f"[11] phase 11: {time.perf_counter() - t_phase:.1f} s; "
+        f"{json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1676,6 +2025,7 @@ def main() -> int:
                                                    MATERIAL_NONE,
                                                    MATERIAL_RIGID)
     from sph_project_tpu_torch.ops import _build
+    from sph_project_tpu_torch.ops import graph_loop
     from sph_project_tpu_torch.ops import neighbors as nblib
     from sph_project_tpu_torch.ops import pair_kernels as pk
     from sph_project_tpu_torch.ops import pairs
@@ -1742,7 +2092,9 @@ def main() -> int:
         torch.cuda.synchronize()
         say(f"[3] {label}: prepare (sort, rigid volumes"
             f"{', density, alpha' if params.simulation_method == 'dfsph' else ''}"
-            f") on {sim.device}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+            f"), the warm-up step ({sim.warmup_ms:.1f} ms) and the capture "
+            f"({sim.capture_ms:.1f} ms) on {sim.device}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         implicit = params.viscosity_method == "implicit"
         step_ms = []
         fluid_num = 0
@@ -1752,6 +2104,7 @@ def main() -> int:
             d = sim.step()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            graph_loop.flush_launches()
             n_moved = pk.launches[moved_key] - before[moved_key]
             check(n_moved == moved_want, f"{label}, step {s}: the rigid-volume "
                   f"pass launched {n_moved} times, not {moved_want}")
@@ -1763,7 +2116,7 @@ def main() -> int:
                             if k in row)
             if implicit:
                 # one matvec for the initial residual and one per iteration
-                cg = viscosity_cg.last_solve["cg_iters"]
+                cg = int(viscosity_cg.last_solve["cg_iters"])
                 n_mv = pk.launches[f"{engine}/visc_matvec"] - \
                     before[f"{engine}/visc_matvec"]
                 n_prep = pk.launches[f"{engine}/visc_prep"] - \
@@ -2370,6 +2723,8 @@ def main() -> int:
         source="sph_project_tpu_torch/csrc/permute.cu",
         replaces=PERMUTE_REPLACES, launches=total_launches["permute"],
         **cold_rec, warm_path=warm_rec))
+    records.append(dict(graph_while_record(card),
+                        launches=total_launches["graph_while"]))
     del sims, cold_sim, slab_sim
     torch.cuda.empty_cache()
 
@@ -2392,7 +2747,7 @@ def main() -> int:
                 counts.append(
                     tuple(int(d[k]) for k in ("solver_iters", "div_iters")
                           if k in d)
-                    + ((viscosity_cg.last_solve["cg_iters"],
+                    + ((int(viscosity_cg.last_solve["cg_iters"]),
                         int(d["fluid_num"])) if implicit else ()))
             sp = small.state.particles
             runs[dev] = (counts, sp.pos[sp.material == MATERIAL_FLUID].cpu())
@@ -2902,7 +3257,7 @@ def main() -> int:
             its = tuple(int(d[k]) for k in ("solver_iters", "div_iters")
                         if k in d)
             if implicit:
-                its += (viscosity_cg.last_solve["cg_iters"],)
+                its += (int(viscosity_cg.last_solve["cg_iters"]),)
             check(bool(torch.isfinite(p.pos).all()),
                   f"{tag}, step {s}: positions not finite")
             check(int(d["neighbor_overflow"]) == 0
@@ -3285,15 +3640,18 @@ def main() -> int:
         if not rec["name"].endswith("@moved"):
             rec["launches"] += launches10.get(rec["name"], 0)
 
-    # ---- 11. records -------------------------------------------------------
+    # ---- 11. the step as one device program: graphed against eager ---------
+    graph_phase(card)
+
+    # ---- 12. records -------------------------------------------------------
     # per engine: every body but the contact pass, the DEM pass and the PBF
     # bodies at the flagship's shapes, the rigid variants, the bodies of a
     # PBF step in 3D and in 2D, phase 8's instances and its DEM pass, and
     # phase 9's body on the extended layout; the gather, and its resort pack
-    # and unpack
+    # and unpack; the WHILE node's condition kernel
     n_pbf = len([b for b in pk.BODIES if b.startswith("pbf_")])
     check(len(records) == 2 * (len(pk.BODIES) - 2 - n_pbf + len(RIGID_VARIANTS)
-                               + 2 * len(PBF_BODIES) + len(measured) + 2) + 3,
+                               + 2 * len(PBF_BODIES) + len(measured) + 2) + 4,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))
     say(card)

@@ -28,7 +28,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("pair_pass", "pair_slab", "permute")
+SOURCES = ("pair_pass", "pair_slab", "permute", "graph_loop")
 PAIR_SOURCES = ("pair_pass", "pair_slab")
 # (kernel kind, dimension) of each pair kernel library
 VARIANTS = (("cubic", 3), ("cubic", 2), ("poly6", 3), ("poly6", 2))

@@ -38,6 +38,7 @@ import torch
 from ..core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
                            SimParams, make_params)
 from . import _build
+from . import graph_loop
 from . import kernels
 from . import neighbors
 from . import pairs
@@ -644,6 +645,8 @@ launches = {launch_key(engine, name, flags, kind, dim): 0
             for engine in ENGINES for name in BODIES for flags in (0, RIGID)
             if not flags or name in RIGID_OUTPUTS
             for kind in KINDS for dim in (3, 2)}
+# a captured step's replays add theirs (ops/graph_loop.py)
+graph_loop.register_counts(launches)
 
 
 def engine_of(env: PairEnv) -> str:

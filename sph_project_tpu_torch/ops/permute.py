@@ -24,6 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from . import _build
+from . import graph_loop
 
 MAX_FIELDS = 24
 # 32-bit words of a row over all fields: the columns of the staged tile
@@ -31,6 +32,8 @@ MAX_WORDS = 64
 # destination rows per block (csrc/permute.cu PERMUTE_TILE)
 TILE = 256
 launches = {"permute": 0}
+# a captured step's replays add theirs (ops/graph_loop.py)
+graph_loop.register_counts(launches)
 
 
 def pack_words(fields: Dict[str, torch.Tensor]) -> torch.Tensor:

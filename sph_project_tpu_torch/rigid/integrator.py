@@ -70,10 +70,11 @@ def channel_table(rigid: RigidState, params: SimParams) -> torch.Tensor:
     ``params.contact_channels``; the last channel for static rigid objects,
     which all share it; -1 for any other object."""
     C = len(pair_kernels.contact_tags(params))
-    chan = torch.full((params.max_objects,), -1, dtype=torch.int32,
-                      device=rigid.mass.device)
+    table = [-1] * params.max_objects
     for c, oid in enumerate(params.contact_channels):
-        chan[oid] = c
+        table[oid] = c
+    # made once per parameter set: a copy from the host cannot be captured
+    chan = constant(tuple(table), torch.int32, rigid.mass.device)
     static = (rigid.obj_material == MATERIAL_RIGID) & (rigid.is_dynamic == 0)
     return torch.where(static & (chan < 0), torch.full_like(chan, C - 1),
                        chan).contiguous()

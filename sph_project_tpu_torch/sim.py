@@ -4,27 +4,33 @@ The JAX package's ``sim.py`` for the ported methods, DFSPH, WCSPH, PCISPH,
 IISPH and PBF, with standard or implicit viscosity, under the cubic spline
 or the poly6 kernel, in 3D and 2D, over fluid, static walls, dynamic rigid
 bodies with the integrator or the shape-matching backend, deferred entries
-and emitters (line numbers name its functions). PyTorch runs eagerly,
-so there is no jit and no scan: ``step`` runs one step and ``run`` loops over
-it. Every tensor of the state lives on the simulation's device, and the
-device defaults to ``"cuda"``; on a host without CUDA, ask for
-``device="cpu"`` explicitly.
+and emitters (line numbers name its functions). On the card
+:class:`Simulation` captures the step into a CUDA graph, its solver loops
+conditional WHILE nodes (``ops/graph_loop.py``): the counterpart of the JAX
+package's ``jax.jit`` step with ``lax.while_loop`` solvers, and ``run`` of
+its ``lax.scan``. On the CPU the same step runs eagerly. Every tensor of the
+state lives on the simulation's device, and the device defaults to
+``"cuda"``; on a host without CUDA, ask for ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import time
 
 import torch
 
 from .core.params import (MATERIAL_FLUID, MATERIAL_NONE, MATERIAL_RIGID,
                           SimParams)
 from .core.state import ParticleState, RigidState, SimState
+from .ops import graph_loop
 from .ops import neighbors as nblib
 from .ops import pairs
 from .ops import permute as permlib
 from .rigid import integrator as rigidlib
 from .rigid import shape_matching as smlib
 from .solvers import common
+from .solvers import viscosity_cg
 
 
 # the ported simulation methods, each the name of its module in .solvers
@@ -237,6 +243,14 @@ class Plumbing:
         return d
 
 
+def graphed(params: SimParams) -> bool:
+    """Whether :class:`Simulation` captures the step of ``params`` on the
+    card: every configuration but the shape-matching rigid backend, whose
+    ``torch.linalg.svd`` reads its convergence flags on the host."""
+    return not (params.has_dynamic_rigid
+                and params.rigid_solver == "shape_matching")
+
+
 def get_step_fn(params: SimParams, plumbing=None):
     """The step function of the scene's method (:403), with the overflow
     accumulators carried in the state (:427-442). ``plumbing`` replaces
@@ -287,6 +301,54 @@ def prepare(state: SimState, params: SimParams) -> SimState:
     return state.replace(particles=p, dfsph_alpha=alpha)
 
 
+def _tensors(tree, path=()):
+    """``(path, tensor)`` for every tensor of a state, its pair environment's
+    included, in field order."""
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            yield path + (f.name,), v
+        elif dataclasses.is_dataclass(v):
+            yield from _tensors(v, path + (f.name,))
+
+
+def _cloned(tree):
+    """A copy of a state (or environment) whose every tensor is a fresh
+    buffer of its own."""
+    out = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.clone()
+        elif dataclasses.is_dataclass(v):
+            v = _cloned(v)
+        out[f.name] = v
+    return dataclasses.replace(tree, **out)
+
+
+def copy_state(dst: SimState, src: SimState) -> None:
+    """Write every tensor of ``src`` into its counterpart in ``dst`` (same
+    structure, shapes and dtypes, else it raises), as if all at once: a
+    value that shares memory with another buffer of ``dst`` is copied aside
+    first."""
+    dst_t, src_t = list(_tensors(dst)), list(_tensors(src))
+    if len(dst_t) != len(src_t) or \
+            type(dst.cached_neighbors) is not type(src.cached_neighbors):
+        raise ValueError("copy_state: the states differ in structure")
+    held = {d.untyped_storage().data_ptr() for _, d in dst_t}
+    moves = []
+    for (pd, d), (ps, v) in zip(dst_t, src_t):
+        if pd != ps or d.shape != v.shape or d.dtype != v.dtype:
+            raise ValueError(f"copy_state: {'.'.join(ps)} is {v.dtype} "
+                             f"{tuple(v.shape)}, the buffer "
+                             f"{'.'.join(pd)} {d.dtype} {tuple(d.shape)}")
+        if v is not d:
+            shared = v.untyped_storage().data_ptr() in held
+            moves.append((d, v.clone() if shared else v))
+    for d, v in moves:
+        d.copy_(v)
+
+
 class Simulation:
     """User-facing driver: prepares the state on ``device`` and steps it.
 
@@ -294,7 +356,22 @@ class Simulation:
     runs through the CUDA kernels of ``csrc/``; on a host without CUDA this
     raises instead of carrying on on the CPU. ``device="cpu"`` runs the
     plain PyTorch versions of the kernels. ``params.pair_backend`` picks the
-    pair engine on either device (``SimParams.resolved_pair_backend``)."""
+    pair engine on either device (``SimParams.resolved_pair_backend``).
+
+    On the card the step is one captured device program, as the JAX
+    package's is one ``jax.jit`` program (``sim.py`` :474): after ``prepare``
+    one eager step runs on a copy of the state (libraries loaded, kernel
+    attributes set, the allocator warm; its result dropped), then
+    ``ops.graph_loop.capture`` records the step, with every solver loop a
+    conditional WHILE node, on static buffers: :attr:`state`'s tensors. A
+    replay reads them and writes the next state back into them, so a step
+    overwrites the tensors of the state before it (clone what must be kept),
+    and assigning :attr:`state` copies into them. ``step`` replays once,
+    ``run(n)`` n times with no host read, as ``lax.scan`` runs the JAX
+    package's (:501). A capture that fails raises. The shape-matching rigid
+    backend steps eagerly on the card: its polar factor
+    (``torch.linalg.svd``) checks its result on the host. On the CPU the
+    step runs eagerly through the same code, its loops on the host."""
 
     def __init__(self, scene, state: SimState, device="cuda"):
         device = torch.device(device)
@@ -306,14 +383,83 @@ class Simulation:
         self.params = scene.params
         self.device = device
         self._step = get_step_fn(self.params)
-        self.state = prepare(state.to(device), self.params)
+        self._graph = None
+        self._state = prepare(state.to(device), self.params)
+        self.warmup_ms = self.capture_ms = 0.0
+        if device.type == "cuda" and graphed(self.params):
+            self._capture()
+
+    @property
+    def state(self) -> SimState:
+        return self._state
+
+    @state.setter
+    def state(self, value: SimState) -> None:
+        if self._graph is None:
+            self._state = value
+        else:
+            copy_state(self._state, value)
+
+    def _capture(self) -> None:
+        """The warm-up step on a copy of the state, then the capture."""
+        t0 = time.perf_counter()
+        with graph_loop.uncounted(), graph_loop.warming():
+            self._step(_cloned(self._state))
+        torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        static = _cloned(self._state)
+
+        def step():
+            new, diag = self._step(static)
+            copy_state(static, new)
+            keys = sorted(diag)
+            bad = [k for k in keys if diag[k].dim() != 0 or diag[k].dtype
+                   not in (torch.int32, torch.float32)]
+            if bad:
+                raise ValueError(f"diagnostics {bad} are not 0-dim int32 or "
+                                 f"float32 tensors")
+            # one row of 32-bit words, the float32 keys' bits kept
+            row = torch.stack([diag[k].view(torch.int32) for k in keys])
+            return keys, [diag[k].dtype for k in keys], row
+
+        viscosity_cg.last_solve.clear()
+        self._graph, self._counts, (keys, dtypes, self._row) = \
+            graph_loop.capture(step, self.device)
+        self._keys, self._dtypes = keys, dtypes
+        # the implicit solve's numbers of a replay are the graph's tensors
+        self._last_solve = dict(viscosity_cg.last_solve)
+        self._state = static
+        self.warmup_ms = (t1 - t0) * 1e3
+        self.capture_ms = (time.perf_counter() - t1) * 1e3
+
+    def _unpack(self, rows: torch.Tensor) -> dict:
+        """The diagnostics of packed rows (``(..., keys)`` int32 words)."""
+        return {k: rows[..., i].view(dt)
+                for i, (k, dt) in enumerate(zip(self._keys, self._dtypes))}
+
+    def _replay(self) -> None:
+        self._graph.replay()
+        self._counts.replayed()
+        viscosity_cg.last_solve.update(self._last_solve)
 
     def step(self) -> dict:
         """One step; returns the diagnostics as 0-dim tensors."""
-        self.state, diag = self._step(self.state)
-        return diag
+        if self._graph is None:
+            self._state, diag = self._step(self._state)
+            return diag
+        self._replay()
+        return self._unpack(self._row.clone())
 
     def run(self, n_steps: int) -> dict:
-        """``n_steps`` steps; returns the diagnostics stacked per step."""
-        diags = [self.step() for _ in range(n_steps)]
-        return {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
+        """``n_steps`` steps; returns the diagnostics stacked per step. On
+        the card the replays write each step's diagnostics into one device
+        buffer, and nothing is read on the host."""
+        if self._graph is None:
+            diags = [self.step() for _ in range(n_steps)]
+            return {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
+        rows = torch.empty((n_steps, len(self._keys)), dtype=torch.int32,
+                           device=self.device)
+        for i in range(n_steps):
+            self._replay()
+            rows[i].copy_(self._row)
+        return self._unpack(rows)

@@ -57,6 +57,14 @@ def global_sum(x: torch.Tensor, params: SimParams) -> torch.Tensor:
     return s.to(torch.float32) if x.is_floating_point() else s
 
 
+def loop_start(iterations: int, dev):
+    """A solver loop's carried (iterations, error) at entry: an int32 count
+    and a float32 +inf error (the JAX loops' ``jnp.int32(0)`` and
+    ``jnp.float32(jnp.inf)``), made on ``dev``."""
+    return (torch.full((), iterations, dtype=torch.int32, device=dev),
+            torch.full((), float("inf"), dtype=torch.float32, device=dev))
+
+
 def global_max(x: torch.Tensor, params: SimParams) -> torch.Tensor:
     """:59."""
     m = torch.max(x)

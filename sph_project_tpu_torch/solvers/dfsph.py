@@ -7,8 +7,10 @@ loops keep the JAX loop conditions (cold: at least one iteration, then until
 the error averaged over ALL active particles, walls included, is under
 tolerance or the iteration cap is hit; warm: the correction from the carried
 stiffness counts as the first iteration and the loop-entry error is real).
-They are Python loops that read the error on the host once per iteration, and
-once more at loop entry on the warm path.
+Each is an ``ops.graph_loop.while_loop``, as each is a ``lax.while_loop``
+in the JAX package: a WHILE node of the captured step on the card, a host
+loop reading its flag once an iteration elsewhere. The iteration counts are
+int32 device tensors from the loops' carries.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from ..core.params import MATERIAL_FLUID, MATERIAL_NONE, SimParams
 from ..core.state import ParticleState, RigidState, SimState, constant
+from ..ops import graph_loop
 from ..ops import kernels
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
@@ -193,27 +196,35 @@ def correct_density_error(p: ParticleState, rigid: RigidState,
     before the first density probe. ``warm_pre`` = (kappa_w, dv, force,
     torque): that correction, already computed by an earlier fused pass
     (:func:`nonpressure_warm_fused`). Returns (p, rigid, iterations, error,
-    accumulated stiffness) with the error as a float32 tensor."""
+    accumulated stiffness) with the iterations an int32 and the error a
+    float32 tensor."""
+    dev = p.pos.device
     fluid_one = (p.material == MATERIAL_FLUID).to(torch.float32)
     vel = p.vel
     rf = torch.zeros_like(rigid.force)
     rt = torch.zeros_like(rigid.torque)
     kacc = torch.zeros_like(alpha)
-    err = torch.tensor(float("inf"), dtype=torch.float32)
-    itr = 0
+    # the warm correction counts as the first iteration
+    itr, err = common.loop_start(
+        int(warm_pre is not None or kappa0 is not None), dev)
     if warm_pre is None and kappa0 is not None:
         kappa_w = _warm_kappa(p, kappa0, params)
         warm_pre = (kappa_w, *_correction(p, rigid, kappa_w, env, params))
     if warm_pre is not None:
         kacc, dv, rf, rt = warm_pre
         vel = vel + dv
-        itr = 1
     star = compute_density_star(p, vel, env, params)
     if warm_pre is not None:
         # the warm correction may already meet the tolerance
         err = _avg_over_active(star - fluid_one, p, params)
-    while itr < 1 or (float(err) > params.dfsph_max_error
-                      and itr < params.dfsph_max_iter):
+
+    def cond(c):
+        _, _, err, itr, _, _, _ = c
+        return (itr < 1) | ((err > params.dfsph_max_error)
+                            & (itr < params.dfsph_max_iter))
+
+    def body(c):
+        vel, star, _, itr, rf, rt, kacc = c
         kappa = (star - 1.0) * alpha / params.dt
         if params.dfsph_omega != 1.0:
             kappa = kappa * params.dfsph_omega
@@ -221,8 +232,10 @@ def correct_density_error(p: ParticleState, rigid: RigidState,
         vel = vel + dv
         star = compute_density_star(p, vel, env, params)
         err = _avg_over_active(star - fluid_one, p, params)
-        rf, rt, kacc = rf + f, rt + tq, kacc + kappa
-        itr += 1
+        return vel, star, err, itr + 1, rf + f, rt + tq, kacc + kappa
+
+    vel, _, err, itr, rf, rt, kacc = graph_loop.while_loop(
+        cond, body, (vel, star, err, itr, rf, rt, kacc))
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     return p.replace(vel=vel), rigid, itr, err, kacc
 
@@ -237,30 +250,37 @@ def correct_divergence_error(p: ParticleState, rigid: RigidState,
     warm path applies one correction from it and probes the derivative again
     before the loop. Returns (p, rigid, iterations, error, accumulated
     stiffness)."""
+    dev = p.pos.device
     eta = params.dfsph_max_error_v * params.density0 / params.dt
     vel = p.vel
     rf = torch.zeros_like(rigid.force)
     rt = torch.zeros_like(rigid.torque)
     kacc = torch.zeros_like(alpha)
-    err = torch.tensor(float("inf"), dtype=torch.float32)
-    itr = 0
+    itr, err = common.loop_start(int(kappa_v0 is not None), dev)
     if kappa_v0 is not None:
         kacc = _warm_kappa(p, kappa_v0, params)
         dv, rf, rt = _correction(p, rigid, kacc, env, params)
         vel = vel + dv
         deriv0 = compute_density_derivative(p, vel, env, params)
         err = _avg_over_active(params.density0 * deriv0, p, params)
-        itr = 1
     deriv = deriv0 if deriv0 is not None else \
         compute_density_derivative(p, vel, env, params)
-    while itr < 1 or (float(err) > eta and itr < params.dfsph_max_iter_v):
+
+    def cond(c):
+        _, _, err, itr, _, _, _ = c
+        return (itr < 1) | ((err > eta) & (itr < params.dfsph_max_iter_v))
+
+    def body(c):
+        vel, deriv, _, itr, rf, rt, kacc = c
         kappa_v = deriv * alpha
         dv, f, tq = _correction(p, rigid, kappa_v, env, params)
         vel = vel + dv
         deriv = compute_density_derivative(p, vel, env, params)
         err = _avg_over_active(params.density0 * deriv, p, params)
-        rf, rt, kacc = rf + f, rt + tq, kacc + kappa_v
-        itr += 1
+        return vel, deriv, err, itr + 1, rf + f, rt + tq, kacc + kappa_v
+
+    vel, _, err, itr, rf, rt, kacc = graph_loop.while_loop(
+        cond, body, (vel, deriv, err, itr, rf, rt, kacc))
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     return p.replace(vel=vel), rigid, itr, err, kacc
 
@@ -304,10 +324,8 @@ def _first_half(state: SimState, env: PairEnv, params: SimParams,
     state = plumbing.rigid_mid(state, env, params)
     p = common.enforce_domain_boundary(state.particles, params,
                                        MATERIAL_FLUID)
-    dev = p.pos.device
     return state.replace(particles=p), dict(
-        solver_iters=constant(itr_d, torch.int32, dev),
-        solver_err=err_d.to(dev) * params.density0)
+        solver_iters=itr_d, solver_err=err_d * params.density0)
 
 
 def _second_half(state: SimState, params: SimParams, plumbing,
@@ -333,10 +351,8 @@ def _second_half(state: SimState, params: SimParams, plumbing,
     )
     if params.dfsph_warm_start_div:
         state = state.replace(dfsph_kappa_v=kacc_v)
-    dev = p.pos.device
     diag = plumbing.diagnostics(state, env, params, extra=dict(
-        extra or {}, div_iters=constant(itr_v, torch.int32, dev),
-        div_err=err_v.to(dev)))
+        extra or {}, div_iters=itr_v, div_err=err_v))
     return state, env, diag
 
 

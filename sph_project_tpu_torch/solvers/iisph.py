@@ -6,15 +6,16 @@ PREVIOUS step's advected density of row i (carried across the sort as
 ``iisph_density_star``; zero before the first step, so that term starts at
 1e12 through the clamp); omega, eta and the iteration cap from the params.
 The pressure loop keeps the JAX loop condition (at least one iteration, then
-until the error is under ``iisph_eta`` or ``iisph_max_iter`` is reached); it
-is a Python loop that reads the error on the host once per iteration.
+until the error is under ``iisph_eta`` or ``iisph_max_iter`` is reached): an
+``ops.graph_loop.while_loop``, a WHILE node of the captured step on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
-from ..core.state import ParticleState, SimState, constant
+from ..core.state import ParticleState, SimState
+from ..ops import graph_loop
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
@@ -70,12 +71,15 @@ def refine(p: ParticleState, dii: torch.Tensor, aii: torch.Tensor,
     aii_safe = torch.where(can, aii, torch.ones_like(aii))
     base = {"pos": p.pos, "material": p.material, "density": p.density,
             "rest_volume": p.rest_volume, "dii": dii, "dpi": dpi}
-    pressure = torch.zeros_like(p.pressure)
-    zero = torch.zeros_like(pressure)
-    err = torch.tensor(float("inf"), dtype=torch.float32)
-    itr = 0
-    while itr < 1 or (float(err) >= params.iisph_eta
-                      and itr < params.iisph_max_iter):
+    zero = torch.zeros_like(p.pressure)
+
+    def cond(c):
+        _, itr, err = c
+        return (itr < 1) | ((err >= params.iisph_eta)
+                            & (itr < params.iisph_max_iter))
+
+    def body(c):
+        pressure, itr, _ = c
         fields = dict(base, pressure=pressure)
         fields["dij_pj"] = pair_kernels.run("iisph_dij_pj", env, fields,
                                             params)["dp"]
@@ -88,8 +92,10 @@ def refine(p: ParticleState, dii: torch.Tensor, aii: torch.Tensor,
         resid = torch.where(fluid_i & (new_p > 1e-10),
                             aii * new_p + sum_i - si, zero)
         err = common.global_sum(resid, params) / nf / params.density0
-        pressure = new_p
-        itr += 1
+        return new_p, itr + 1, err
+
+    pressure, itr, err = graph_loop.while_loop(cond, body, (
+        torch.zeros_like(p.pressure), *common.loop_start(0, p.pos.device)))
     return pressure, itr, err
 
 
@@ -119,7 +125,5 @@ def step(state: SimState, params: SimParams, plumbing):
     state = plumbing.rigid_and_tail(
         state.replace(particles=p, rigid=rigid,
                       iisph_density_star=density_star), env, params)
-    dev = p.pos.device
     return state, plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=constant(itr, torch.int32, dev),
-        solver_err=err.to(dev) * params.density0))
+        solver_iters=itr, solver_err=err * params.density0))

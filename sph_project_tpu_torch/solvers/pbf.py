@@ -102,7 +102,7 @@ def step(state: SimState, params: SimParams, plumbing):
                           step_count=state.step_count + 1)
     dev = p.pos.device
     diag = plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=torch.tensor(params.pbf_iters, dtype=torch.int32,
-                                  device=dev),
+        solver_iters=torch.full((), params.pbf_iters, dtype=torch.int32,
+                                device=dev),
         solver_err=torch.zeros((), dtype=torch.float32, device=dev)))
     return state, diag

@@ -3,8 +3,8 @@
 The JAX package's ``solvers/pcisph.py`` (line numbers below name its
 functions). The prediction-correction loop keeps the JAX loop condition (at
 least one iteration, then until the density error measured at the start of
-an iteration is under ``pcisph_eta`` or ``pcisph_max_iter`` is reached); it
-is a Python loop that reads the error on the host once per iteration.
+an iteration is under ``pcisph_eta`` or ``pcisph_max_iter`` is reached): an
+``ops.graph_loop.while_loop``, a WHILE node of the captured step on the card.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
-from ..core.state import ParticleState, RigidState, SimState, constant
+from ..core.state import ParticleState, RigidState, SimState
+from ..ops import graph_loop
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
@@ -82,10 +83,14 @@ def refine(p: ParticleState, rigid: RigidState, env: PairEnv,
     pressure = torch.zeros_like(p.pressure)
     pred_v = torch.where(fluid, p.vel + params.dt * p.acc, p.vel)
     pred_x = torch.where(fluid, p.pos + params.dt * pred_v, p.pos)
-    err = torch.tensor(float("inf"), dtype=torch.float32)
-    itr = 0
-    while itr < 1 or (float(err) >= params.pcisph_eta
-                      and itr < params.pcisph_max_iter):
+
+    def cond(c):
+        _, _, _, itr, err = c
+        return (itr < 1) | ((err >= params.pcisph_eta)
+                            & (itr < params.pcisph_max_iter))
+
+    def body(c):
+        pressure, pred_v, pred_x, itr, _ = c
         star, err = density_star_predicted(p, pred_x, env, params)
         pressure = pressure + k_pci * (params.density0 - star)
         pressure = torch.where(fluid_i, torch.clamp_min(pressure, 0.0),
@@ -95,7 +100,10 @@ def refine(p: ParticleState, rigid: RigidState, env: PairEnv,
         pred_v = torch.where(fluid, p.vel + params.dt * (p.acc + p_acc),
                              pred_v)
         pred_x = torch.where(fluid, p.pos + params.dt * pred_v, pred_x)
-        itr += 1
+        return pressure, pred_v, pred_x, itr + 1, err
+
+    pressure, _, _, itr, err = graph_loop.while_loop(cond, body, (
+        pressure, pred_v, pred_x, *common.loop_start(0, p.pos.device)))
     return pressure, itr, err
 
 
@@ -118,7 +126,5 @@ def step(state: SimState, params: SimParams, plumbing):
 
     state = plumbing.rigid_and_tail(state.replace(particles=p, rigid=rigid),
                                     env, params)
-    dev = p.pos.device
     return state, plumbing.diagnostics(state, env, params, extra=dict(
-        solver_iters=constant(itr, torch.int32, dev),
-        solver_err=err.to(dev) * params.density0))
+        solver_iters=itr, solver_err=err * params.density0))

@@ -9,27 +9,27 @@ per solve) and ``visc_matvec`` (once per CG iteration); both produce on the
 fluid rows only, the only rows whose results the solve keeps (:100-104,
 :123).
 
-The JAX CG is a ``lax.while_loop`` on the device; here the loop runs on the
-host and reads the residual once per iteration, as the port's PCISPH and
-IISPH loops do. The per-row inverse (3x3, or 2x2 in 2D) is written out as
+The CG is an ``ops.graph_loop.while_loop``, as the JAX one is a
+``lax.while_loop``: a WHILE node of the captured step on the card, a host
+loop reading its flag once an iteration elsewhere. The per-row inverse (3x3, or 2x2 in 2D) is written out as
 cofactors over the determinant and every small matrix product as sums of
 products, so no matrix product (and no TF32) touches the solve.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
 from ..core.state import ParticleState, RigidState, SimState
+from ..ops import graph_loop
 from ..ops import pair_kernels
 from ..ops.pairs import PairEnv
 from . import common
 
-# the last solve's CG iterations and final residual norm (host numbers) and
-# its largest |visc_x| (a 0-dim tensor on the solve's device); not a
-# diagnostic of the step, which keeps the JAX package's keys
+# the last solve's CG iterations (int32), final residual norm (float32) and
+# largest |visc_x|, 0-dim tensors on the solve's device (under a captured
+# step, the graph's: each replay updates them); not a diagnostic of the
+# step, which keeps the JAX package's keys
 last_solve: dict = {}
 
 
@@ -102,12 +102,16 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
                                params, produce=fluid)["acc"]
         return torch.where(fmask, x + dt_rho * common.matvec(dinv, acc), zero)
 
-    # CG (:126-147): at least one iteration, err starts at +inf
+    # CG (:126-147): err starts at +inf, so the first test passes
     x = torch.where(fmask, state.visc_x + p.vel, zero)
     r = torch.where(fmask, common.matvec(dinv, b) - matvec(x), zero)
-    pdir = r
-    itr, err = 0, math.inf
-    while err > params.cg_tol and itr < params.cg_max_iter:
+
+    def cond(c):
+        _, _, _, itr, err = c
+        return (err > params.cg_tol) & (itr < params.cg_max_iter)
+
+    def body(c):
+        x, r, pdir, itr, _ = c
         ap = matvec(pdir)
         rr = common.global_sum(r * r, params)
         pap = common.global_sum(pdir * ap, params)
@@ -117,9 +121,10 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
         rr_new = common.global_sum(r_new * r_new, params)
         beta = torch.where(rr > 1e-18, rr_new / rr, zero)
         pdir = r_new + beta * pdir
-        r = r_new
-        itr += 1
-        err = float(torch.sqrt(rr_new))
+        return x, r_new, pdir, itr + 1, torch.sqrt(rr_new)
+
+    x, _, _, itr, err = graph_loop.while_loop(
+        cond, body, (x, r, r, *common.loop_start(0, dev)))
 
     # the standard viscosity at the solution (:149-155), with the surface
     # tension and, with dynamic bodies, the viscosity wrench

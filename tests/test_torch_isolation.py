@@ -10,10 +10,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "sph_project_tpu_torch")
 
-# a fresh interpreter: load a small scene, run one CPU step (each ported
-# method under the cell-list engine, or DFSPH warm under the slab-window
-# engine), then list any module of JAX or of the JAX package that got
-# imported along the way
+# a fresh interpreter: load a small scene, run one CPU step and two through
+# ``run`` (each ported method under the cell-list engine, or DFSPH warm
+# under the slab-window engine; the loops through ops/graph_loop.py), then
+# list any module of JAX or of the JAX package that got imported along the
+# way
 _PROBE = """
 import sys
 from sph_project_tpu_torch.scene import load_scene
@@ -23,6 +24,9 @@ sim = Simulation(scene, state, device="cpu")
 assert type(sim.state.cached_neighbors).__name__ == %r
 diag = sim.step()
 assert int(diag["neighbor_overflow"]) == 0
+assert sim.run(2)["fluid_num"].shape == (2,)
+assert int(sim.state.step_count) == 3
+assert "sph_project_tpu_torch.ops.graph_loop" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sph_project_tpu"))
 print("FOREIGN", bad)
