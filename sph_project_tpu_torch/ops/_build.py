@@ -28,7 +28,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("pair_pass", "pair_slab", "permute", "graph_loop")
+SOURCES = ("pair_pass", "pair_slab", "permute", "graph_loop", "polar")
 PAIR_SOURCES = ("pair_pass", "pair_slab")
 # (kernel kind, dimension) of each pair kernel library
 VARIANTS = (("cubic", 3), ("cubic", 2), ("poly6", 3), ("poly6", 2))
@@ -88,15 +88,18 @@ def build_all(names=SOURCES, verbose: bool = False) -> None:
             src, out = _target(name, variant)
             if os.path.exists(out):
                 continue
+            # a file of this process's own: ranks started together on a
+            # fresh checkout build the same library at once
+            tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, *_defines(variant),
                    *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", out + ".tmp", src]
+                   "-o", tmp, src]
             label = name if variant is None else \
                 f"{name}-{variant[0]}{variant[1]}d"
-            procs.append((label, out, subprocess.Popen(
+            procs.append((label, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
-    for label, out, proc in procs:
+    for label, out, tmp, proc in procs:
         log, _ = proc.communicate()
         build_seconds[label] = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -104,7 +107,7 @@ def build_all(names=SOURCES, verbose: bool = False) -> None:
             continue
         if verbose and log:
             print(f"nvcc {label}:\n{log.decode()}", flush=True)
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
 

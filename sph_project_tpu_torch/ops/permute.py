@@ -151,17 +151,28 @@ def _check_perm(perm: torch.Tensor) -> int:
 
 def _check_fields(perm: torch.Tensor, arrays: Dict[str, torch.Tensor]) -> List[int]:
     """Words a row of each field; every field contiguous on ``perm``'s
-    device with its rows."""
+    device, all of one row count, at least ``perm``'s (see
+    :func:`_check_source_rows`)."""
     n = _check_perm(perm)
     if not 1 <= len(arrays) <= MAX_FIELDS:
         raise ValueError(f"permute takes 1..{MAX_FIELDS} fields, got {len(arrays)}")
+    m = next(iter(arrays.values())).shape[0]
+    _check_source_rows(m, n)
     words = []
     for k, v in arrays.items():
-        if v.device != perm.device or v.shape[0] != n or not v.is_contiguous():
+        if v.device != perm.device or v.shape[0] != m or not v.is_contiguous():
             raise ValueError(f"field {k}: must be contiguous on {perm.device} "
-                             f"with {n} rows")
+                             f"with {m} rows, as the first field")
         words.append(_row_words(f"field {k}", v))
     return words
+
+
+def _check_source_rows(m: int, n: int) -> None:
+    """A permutation, or a slice of one, takes ``n`` distinct rows of the
+    ``m`` it reads: as many as it has (the sort), or more (the resort's
+    unpack reads its rank's rows from every rank's)."""
+    if m < n:
+        raise ValueError(f"{n} distinct rows cannot come from {m} rows")
 
 
 def _gather(perm: torch.Tensor, sources, dests) -> None:
@@ -192,9 +203,12 @@ def _offsets(words: Sequence[int]) -> List[int]:
 def permute_fields_cuda(perm: torch.Tensor,
                         arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The fused gather kernel. Every array is contiguous, on ``perm``'s
-    device, has ``perm.shape[0]`` rows and 32-bit-word-multiple rows."""
+    device, of one row count and 32-bit-word-multiple rows; the outputs
+    have ``perm.shape[0]`` rows."""
     words = _check_fields(perm, arrays)
-    outs = {k: torch.empty_like(v) for k, v in arrays.items()}
+    outs = {k: torch.empty((perm.shape[0],) + tuple(v.shape[1:]),
+                           dtype=v.dtype, device=v.device)
+            for k, v in arrays.items()}
     cols = _offsets(words)
     _gather(perm, list(zip(arrays.values(), words, cols)),
             list(zip(outs.values(), words)))
@@ -215,17 +229,17 @@ def permute_pack_cuda(perm: torch.Tensor,
 
 def permute_unpack_cuda(perm: torch.Tensor, words: torch.Tensor,
                         like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The kernel gathering a (n, W) int32 buffer's rows into fields of
-    ``like``'s dtypes and row shapes, taken from the buffer's columns in
-    ``like``'s order."""
+    """The kernel gathering rows of a (m, W) int32 buffer into fields of
+    ``perm.shape[0]`` rows of ``like``'s dtypes and row shapes, taken from
+    the buffer's columns in ``like``'s order."""
     n = _check_perm(perm)
     if not 1 <= len(like) <= MAX_FIELDS:
         raise ValueError(f"permute takes 1..{MAX_FIELDS} fields, got {len(like)}")
     if words.dtype != torch.int32 or words.dim() != 2 or \
-            words.device != perm.device or words.shape[0] != n or \
-            not words.is_contiguous():
-        raise ValueError(f"the buffer must be a contiguous (n, W) int32 "
-                         f"tensor on {perm.device} with {n} rows")
+            words.device != perm.device or not words.is_contiguous():
+        raise ValueError(f"the buffer must be a contiguous (m, W) int32 "
+                         f"tensor on {perm.device}")
+    _check_source_rows(words.shape[0], n)
     widths = [_row_words(f"field {k}", v) for k, v in like.items()]
     if sum(widths) != words.shape[1]:
         raise ValueError(f"the buffer has {words.shape[1]} words a row, the "

@@ -68,6 +68,10 @@ def launch(target: str, world_size: int, kwargs: dict, run_dir: str,
     env = dict(os.environ, PYTHONPATH=_ROOT)
     if device == "cpu":
         env["OMP_NUM_THREADS"] = "1"
+    if backend == "nccl":
+        # so that a step's loops can be captured past one rank
+        # (collectives.capturable)
+        env.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     procs, logs = [], []
     try:
         for rank in range(world_size):
@@ -156,6 +160,10 @@ def _numbers(diag: dict) -> dict:
     return {k: v.item() for k, v in diag.items()}
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -164,14 +172,18 @@ def _sync(dev: torch.device) -> None:
 def run_cases(rank: int, world_size: int, cases: list, out_dir: str,
               device: str = "cuda") -> None:
     """Each case prepared on this rank's device from the whole scene, sharded
-    and stepped ``case["steps"]`` times through ``spatial_step_fn`` (or,
+    and stepped ``case["steps"]`` times through ``spatial.SpatialSimulation``
+    (captured where ``collectives.capturable``, else eager) (or,
     with ``mode="sharded"``, sharded, prepared and stepped through
     ``parallel/sharding.py``); writes
     ``<out_dir>/<name>.rank<r>.pkl``: this rank's rows and the body tables
     (``rows``, numpy by ``bridge`` name), the diagnostics, CG iterations
     (implicit viscosity) and wall ms of every step, the halo ``H`` and this
     rank's shortfall at the last state, the kernel launches of the steps,
-    the backend and the foreign modules loaded."""
+    the backend and the foreign modules loaded, whether the step was
+    captured, and with ``eager_check`` in the case whether an eager
+    ``spatial_step_fn`` from the same start equalled each step bit for
+    bit."""
     from .. import bridge
     from .. import sim as simlib
     from ..solvers import viscosity_cg
@@ -183,10 +195,18 @@ def run_cases(rank: int, world_size: int, cases: list, out_dir: str,
                 else sharding.make_mesh(device))
         scene, state = load_case(case)
         params = scene.params
+        eager = eager_equal = None
         if spatial_mode:
-            state = simlib.prepare(state.to(mesh.device), params)
-            state = spatial.shard_state(state, mesh, params)
-            step = spatial.spatial_step_fn(params, mesh)
+            sim = spatial.SpatialSimulation(scene, state, mesh)
+
+            def step(_):
+                diag = sim.step()
+                return sim.state, diag
+            if case.get("eager_check"):
+                # the eager step from the same state, held to each step
+                eager = [spatial.spatial_step_fn(params, mesh),
+                         simlib._cloned(sim.state)]
+                eager_equal = []
         else:
             state = sharding.shard_state(state, mesh, params)
             state = sharding.sharded_prepare_fn(params, mesh)(state)
@@ -202,6 +222,11 @@ def run_cases(rank: int, world_size: int, cases: list, out_dir: str,
             diags.append(_numbers(diag))
             if params.viscosity_method == "implicit":
                 cg.append(int(viscosity_cg.last_solve["cg_iters"]))
+            if eager is not None:
+                eager[1], e_diag = eager[0](eager[1])
+                eager_equal.append(_numbers(e_diag) == diags[-1] and all(
+                    torch.equal(_bits(a), _bits(b)) for (_, a), (_, b) in
+                    zip(simlib._tensors(state), simlib._tensors(eager[1]))))
         counts = {k: v for k, v in kernel_counts().items() if v}
         H = shortfall = 0
         if spatial_mode:
@@ -214,7 +239,9 @@ def run_cases(rank: int, world_size: int, cases: list, out_dir: str,
         res = dict(rows=bridge.state_to_numpy(state), diags=diags, ms=ms,
                    cg_iters=cg, launches=counts, foreign=foreign_modules(),
                    backend=mesh.backend, n_pad=params.n_pad, H=H,
-                   shortfall=shortfall)
+                   shortfall=shortfall,
+                   captured=spatial_mode and sim._graph is not None,
+                   eager_equal=eager_equal)
         _write(out_dir, f"{case['name']}.rank{rank}.pkl", res)
 
 
@@ -231,8 +258,13 @@ def run_probes(rank: int, world_size: int, probes: list, out_dir: str,
       scene ``case`` (see :func:`load_case`);
     - ``"resort"``: the scene ``case`` as loaded, its particle rows
       reordered by ``perm``, sharded and put through ``global_resort``: this
-      rank's rows (``bridge`` names) and sorted cell ids (``"cells"``)."""
+      rank's rows (``bridge`` names), sorted cell ids (``"cells"``) and the
+      resort's collectives (``"traffic"``, ``collectives.traffic``);
+    - ``"step_class"``: the scene ``case`` ``steps`` steps through
+      ``SpatialSimulation`` and through ``spatial_step_fn`` from the same
+      state: the diagnostics of each and this rank's rows at the end."""
     from .. import bridge
+    from .. import sim as simlib
     from . import collectives, sharding, spatial
     mesh = spatial.make_mesh(device)
     collectives.bind(mesh)
@@ -262,10 +294,27 @@ def run_probes(rank: int, world_size: int, probes: list, out_dir: str,
             for path in sharding.particle_paths(state):
                 arrays[path] = arrays[path][perm]
             state = sharding.shard_state(bridge.build(arrays), mesh, params)
-            state = spatial.global_resort(state, params, mesh)
+            with collectives.traffic() as log:
+                state = spatial.global_resort(state, params, mesh)
             rows = bridge.state_to_numpy(state.replace(cached_neighbors=None))
             rows["cells"] = state.cached_neighbors.cpu().numpy()
+            rows["traffic"] = log
             out[pr["name"]] = rows
+        elif kind == "step_class":
+            sim = spatial.SpatialSimulation(scene, state, mesh)
+            state = spatial.shard_state(
+                simlib.prepare(state.to(dev), scene.params), mesh,
+                scene.params)
+            step = spatial.spatial_step_fn(scene.params, mesh)
+            res = {"class": [], "step_fn": []}
+            for _ in range(pr["steps"]):
+                res["class"].append(_numbers(sim.step()))
+                state, diag = step(state)
+                res["step_fn"].append(_numbers(diag))
+            for key, st in (("class", sim.state), ("step_fn", state)):
+                res[key + "_rows"] = bridge.state_to_numpy(
+                    st.replace(cached_neighbors=None))
+            out[pr["name"]] = res
         else:
             raise ValueError(f"unknown probe kind {kind!r}")
     _write(out_dir, f"probes.rank{rank}.pkl", out)

@@ -6,12 +6,13 @@ split of the particle rows over the ranks is a split of the domain into
 slabs along x. Each rank holds its slice of every per-particle array
 (``sharding.shard_state``) and the body tables whole. A step:
 
-1. a global resort (:func:`global_resort`): the cell ids of every rank
-   all-gathered, one stable sort of them on every rank (the permutation one
-   device would take, since the slices concatenate to the whole array), then
-   the rows each rank needs packed with the gather kernel
-   (``ops/permute.py``), exchanged with one all-to-all and unpacked with the
-   gather again. The sorted cell ids ride along, as the JAX package's
+1. a global resort (:func:`global_resort`): every rank's rows, cell ids
+   first, packed with the gather kernel (``ops/permute.py``) and
+   all-gathered into one buffer in rank order, one stable sort of the cell
+   ids on every rank (the permutation one device would take, since the
+   slices concatenate to the whole array), and the rank's slice of it
+   unpacked from the buffer with the gather again: exact, and of fixed
+   shapes. The sorted cell ids ride along, as the JAX package's
    ``cached_neighbors=cells`` does. This is the sharded sort XLA writes for
    the JAX package (:293-295), written out. DFSPH resorts twice a step,
    around its two segments (``solvers/dfsph.py``);
@@ -38,8 +39,10 @@ Whether the halo held every candidate is checked every step
 
 The mesh is :class:`collectives.Mesh` over every rank of the default
 process group (:func:`make_mesh`), on the card unless asked otherwise;
-``parallel/launch.py`` starts ranks. The JAX package's contact-producer
-environment has no counterpart: the port's engines walk candidates per row.
+``parallel/launch.py`` starts ranks. :class:`SpatialSimulation` holds a
+rank's state and steps it, captured into a CUDA graph where it can be. The
+JAX package's contact-producer environment has no counterpart: the port's
+engines walk candidates per row.
 """
 from __future__ import annotations
 
@@ -213,48 +216,31 @@ def spatial_run(name: str, env: SpatialEnv, fields: dict, params: SimParams,
     return {k: v[H:v.shape[0] - H] for k, v in out.items()}
 
 
-def resort_plan(cells_all: torch.Tensor, rank: int, size: int):
-    """How rank ``rank`` of ``size`` takes part in the global resort of the
-    all-gathered cell ids ``cells_all`` (every rank's ``n_local`` in rank
-    order): the one stable sort of them, the permutation one device takes.
-    Returns (``send_idx``: this rank's rows in the order of their sorted
-    places, which groups them by destination rank; the rows it sends to each
-    rank; the rows it receives from each; ``inv``: the received row each of
-    its sorted places takes, the rows arriving grouped by source rank in rank
-    order and by place within a group)."""
-    nl = cells_all.shape[0] // size
-    perm = nblib.sort_permutation(cells_all)
-    src = torch.div(perm, nl, rounding_mode="floor")
-    mine = src == rank
-    send_idx = perm[mine] - rank * nl
-    send_counts = mine.view(size, nl).sum(1)
-    block = src[rank * nl:(rank + 1) * nl]
-    recv_counts = torch.bincount(block, minlength=size)
-    order = torch.sort(block, stable=True).indices
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(nl, device=order.device)
-    return send_idx, send_counts.tolist(), recv_counts.tolist(), inv
-
-
 def global_resort(state: SimState, params: SimParams, mesh: Mesh) -> SimState:
     """Sort the carried per-particle arrays by grid cell over the whole mesh
     (:293-295): this rank's rows of the globally sorted state, with their
     sorted cell ids in ``cached_neighbors``. The same rows and order as
-    ``sim.sort_state`` on one device. The gather kernel (``ops/permute.py``)
-    packs the rows for their destinations straight into the send buffer and
-    unpacks the received buffer straight into sorted fields, int dtypes
-    kept; between the two, one all-to-all."""
+    ``sim.sort_state`` on one device, and the same shapes every step, as
+    XLA's sharded sort is for the JAX package: the gather kernel
+    (``ops/permute.py``) packs the rank's rows, cell ids first, into its
+    (n_local, W) int32 buffer; one all-gather makes the (n_pad, W) buffer of
+    every rank's rows in rank order, which is the global row order; the
+    stable sort of its cell ids is one device's permutation, and the kernel
+    unpacks this rank's slice of it from the buffer into sorted fields, int
+    dtypes kept. Nothing is read on the host. Each rank receives (D - 1) / D
+    of the packed state per resort (PERF.md)."""
     p = state.particles
     cells = nblib.flat_cell_ids(p.pos, p.material != MATERIAL_NONE, params)
-    send_idx, send_counts, recv_counts, inv = resort_plan(
-        collectives.all_gather(cells, mesh), mesh.rank, mesh.size)
     keys, extras = simlib.permuted_keys(params)
-    arrays = {k: getattr(p, k) for k in keys}
+    arrays = {"cells": cells}
+    arrays.update({k: getattr(p, k) for k in keys})
     arrays.update({k: getattr(state, k) for k in extras})
-    arrays["cells"] = cells
-    recv = collectives.all_to_all(permlib.permute_pack(send_idx, arrays),
-                                  send_counts, recv_counts, mesh)
-    out = permlib.permute_unpack(inv, recv, arrays)
+    nl = cells.shape[0]
+    own = torch.arange(nl, device=cells.device)
+    rows = collectives.all_gather(permlib.permute_pack(own, arrays), mesh)
+    perm = nblib.sort_permutation(rows[:, 0])
+    out = permlib.permute_unpack(perm[mesh.rank * nl:(mesh.rank + 1) * nl],
+                                 rows, arrays)
     cells_sorted = out.pop("cells")
     state = state.replace(**{k: out.pop(k) for k in extras})
     return state.replace(particles=p.replace(**out),
@@ -296,3 +282,43 @@ def spatial_step_fn(params: SimParams, mesh: Mesh):
             return state.replace(cached_neighbors=None), diag
 
     return step
+
+
+class SpatialSimulation(simlib.Simulation):
+    """:class:`sim.Simulation` over the spatial decomposition: the whole
+    ``state`` prepared on the mesh's device, this rank's slice of it held
+    (:func:`shard_state`), stepped by :func:`spatial_step_fn`. Every rank of
+    the mesh builds one and steps it alike.
+
+    As the JAX package compiles the decomposed step into one program
+    (``jax.jit(step, donate_argnums=0)``, :332), the step is captured into
+    a CUDA graph where :func:`collectives.capturable` says it can be (NCCL
+    on the card; past one rank with NCCL's graph-mixing support off, as
+    ``parallel/launch.py`` starts its ranks): one eager warm-up step on a
+    copy of the state, which also makes every NCCL communicator the step
+    uses, then the capture, the all-reduces of the solvers' residuals and
+    the halo exchanges inside their loops' WHILE nodes, the resort's
+    all-gather in the graph; ``step`` replays once, ``run(n)`` n times with
+    no host read. Synchronise before any NCCL call outside the graph while
+    a replay may run (NCCL without graph-mixing support). Elsewhere the
+    step runs eagerly, its loops reading their all-reduced flags on the
+    host: under gloo (the host stages its buffers) and on the CPU.
+    ``capture=True`` where the step cannot be captured raises;
+    ``capture=False`` steps eagerly on the card too."""
+
+    def __init__(self, scene, state: SimState, mesh: Mesh,
+                 capture: bool | None = None):
+        can = collectives.capturable(mesh)
+        if capture is None:
+            capture = can
+        elif capture and not can:
+            raise ValueError(f"SpatialSimulation: a step of {mesh.size} "
+                             f"rank(s) over {mesh.backend} on {mesh.device} "
+                             f"cannot be captured (collectives.capturable); "
+                             f"pass capture=False or None")
+        params = scene.params
+        self.mesh = mesh
+        step = spatial_step_fn(params, mesh)
+        state = shard_state(simlib.prepare(state.to(mesh.device), params),
+                            mesh, params)
+        self._start(scene, mesh.device, step, state, capture)

@@ -14,10 +14,10 @@ Per-object sums are ``common.object_reduce`` (a fixed-order float32
 product), reduced over the mesh under the spatial decomposition
 (``common.global_tables``, :79 and :113-114), and reads of the body table
 ``common.object_gather``. The polar
-factor takes ``torch.linalg.svd`` and ``torch.linalg.det`` of the (O, dim,
-dim) covariances, as the JAX package takes ``jnp.linalg.svd`` and
-``jnp.linalg.det`` outside any kernel; the products of small matrices are
-sums of products, never a TF32 path.
+factor of the (O, dim, dim) covariances, which the JAX package takes with
+``jnp.linalg.svd`` and ``jnp.linalg.det`` inside its jitted step, is
+``ops/polar.py``: a CUDA kernel on the card, ``torch.linalg`` on the CPU.
+The products of small matrices are sums of products, never a TF32 path.
 """
 from __future__ import annotations
 
@@ -25,20 +25,16 @@ import torch
 
 from ..core.params import MATERIAL_RIGID, SimParams
 from ..core.state import ParticleState, RigidState, constant
-from ..solvers.common import (cross, global_tables, matmul, matvec,
+from ..ops import polar
+from ..solvers.common import (cross, global_tables, matvec,
                               object_gather, object_index, object_reduce)
 
 
 def _polar_rotation(A: torch.Tensor) -> torch.Tensor:
     """The rotation factor R of the polar decomposition A = R S, batched
     (:21): U V^T of the SVD, with U's last column scaled by det(U V^T) so
-    that a reflection becomes a rotation."""
-    U, _, Vh = torch.linalg.svd(A)
-    det = torch.linalg.det(matmul(U, Vh))
-    fix = torch.cat([torch.ones(det.shape + (A.shape[-1] - 1,),
-                                dtype=A.dtype, device=A.device),
-                     det[..., None]], -1)
-    return matmul(U * fix[..., None, :], Vh)
+    that a reflection becomes a rotation; ``ops/polar.py``."""
+    return polar.polar_rotation(A)
 
 
 def shape_matching_step(p: ParticleState, rigid: RigidState,

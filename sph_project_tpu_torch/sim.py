@@ -245,10 +245,9 @@ class Plumbing:
 
 def graphed(params: SimParams) -> bool:
     """Whether :class:`Simulation` captures the step of ``params`` on the
-    card: every configuration but the shape-matching rigid backend, whose
-    ``torch.linalg.svd`` reads its convergence flags on the host."""
-    return not (params.has_dynamic_rigid
-                and params.rigid_solver == "shape_matching")
+    card: every configuration (the shape-matching backend's polar factor is
+    ``csrc/polar.cu``, which reads nothing on the host)."""
+    return True
 
 
 def get_step_fn(params: SimParams, plumbing=None):
@@ -368,10 +367,8 @@ class Simulation:
     overwrites the tensors of the state before it (clone what must be kept),
     and assigning :attr:`state` copies into them. ``step`` replays once,
     ``run(n)`` n times with no host read, as ``lax.scan`` runs the JAX
-    package's (:501). A capture that fails raises. The shape-matching rigid
-    backend steps eagerly on the card: its polar factor
-    (``torch.linalg.svd``) checks its result on the host. On the CPU the
-    step runs eagerly through the same code, its loops on the host."""
+    package's (:501). A capture that fails raises. On the CPU the step runs
+    eagerly through the same code, its loops on the host."""
 
     def __init__(self, scene, state: SimState, device="cuda"):
         device = torch.device(device)
@@ -379,14 +376,22 @@ class Simulation:
             raise RuntimeError("Simulation(device='cuda'): CUDA is not "
                                "available on this host; pass device='cpu' "
                                "to run the plain PyTorch path")
+        self._start(scene, device, get_step_fn(scene.params),
+                    prepare(state.to(device), scene.params),
+                    device.type == "cuda" and graphed(scene.params))
+
+    def _start(self, scene, device: torch.device, step, state: SimState,
+               capture: bool) -> None:
+        """Hold ``state`` (prepared, on ``device``) and its step function,
+        and capture the step if ``capture``."""
         self.scene = scene
         self.params = scene.params
         self.device = device
-        self._step = get_step_fn(self.params)
+        self._step = step
         self._graph = None
-        self._state = prepare(state.to(device), self.params)
+        self._state = state
         self.warmup_ms = self.capture_ms = 0.0
-        if device.type == "cuda" and graphed(self.params):
+        if capture:
             self._capture()
 
     @property

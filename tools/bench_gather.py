@@ -10,10 +10,12 @@ each:
 - ``flagship_cold``: the 10 fields a cold DFSPH step carries (16 words a
   row) and ``flagship_warm``: the 12 of a warm one (18 words);
 - ``resort_pack`` / ``resort_unpack``: the global resort as rank 1 of 4
-  takes it (``parallel/spatial.py`` ``resort_plan``; the 10 cold fields):
-  its own rows gathered into the send buffer, and the rows the others send
-  it, as one (n, W) int32 buffer, gathered into its slice of the sorted
-  state.
+  takes it (``parallel/spatial.py`` ``global_resort``; the cell ids and the
+  10 cold fields): its own rows packed into its (n / 4, W) int32 buffer,
+  and its slice of the sorted state gathered from the all-gathered (n, W)
+  buffer of every rank's rows. A checkout from before that resort
+  (``spatial.resort_plan``, an all-to-all of the rows that move) times the
+  sort's shapes only.
 
 One JSON line per shape. Each timed call has three numbers
 (``tools/cuda_timing.py``): ``ms``, back to back with the host's time per
@@ -77,7 +79,7 @@ def main() -> int:
     from sph_project_tpu_torch.core.params import MATERIAL_NONE
     from sph_project_tpu_torch.ops import neighbors as nblib
     from sph_project_tpu_torch.ops import permute as permlib
-    from sph_project_tpu_torch.parallel import collectives, spatial
+    from sph_project_tpu_torch.parallel import spatial
     from sph_project_tpu_torch.scene import load_scene
     from sph_project_tpu_torch.solvers import common
 
@@ -102,12 +104,16 @@ def main() -> int:
     cold["cells"] = cells
     warm = dict(cold, **{k: getattr(st, k) for k in extras})
 
-    def line(shape, idx, src, rows, kernel=None, composition=None, want=None):
+    def line(shape, idx, src, rows, kernel=None, composition=None, want=None,
+             moved=None):
+        """One shape's times; ``moved``: the fields whose bytes the call
+        must read and write once (``src`` unless given)."""
+        moved = src if moved is None else moved
         lib = {k: torch.index_select(v, 0, idx) for k, v in src.items()}
         out = permlib.permute_fields(idx, src)
         ok = all(torch.equal(bits(out[k]), bits(lib[k])) for k in src)
         del lib, out
-        flat = torch.empty(nbytes(src.values()) // 4, dtype=torch.int32,
+        flat = torch.empty(nbytes(moved.values()) // 4, dtype=torch.int32,
                            device=idx.device)
         copy = torch.empty_like(flat)
         rec = {"card": card, "label": args.label, "shape": shape,
@@ -119,7 +125,7 @@ def main() -> int:
                                               for v in src.values()]),
                "copy_device_ms": led_ms(lambda: copy.copy_(flat),
                                         LED_REPS)[0],
-               "bound_ms": bound_ms(2 * nbytes(src.values())
+               "bound_ms": bound_ms(2 * nbytes(moved.values())
                                     + nbytes([idx]), 0)[0]}
         del flat, copy
         if kernel is not None:
@@ -137,36 +143,25 @@ def main() -> int:
     ok &= line("flagship_warm", perm, warm, params.n_pad)
 
     # the resort as rank RANK of RANKS takes it (chip_smoke.py phase 9c)
+    if hasattr(spatial, "resort_plan"):
+        return 0 if ok else 1
     nl = params.n_pad // RANKS
-    send_idx, _, _, inv = spatial.resort_plan(cells, RANK, RANKS)
+    rows = {"cells": cells, **cold}
     mine = perm[RANK * nl:(RANK + 1) * nl]
-    order = torch.sort(torch.div(mine, nl, rounding_mode="floor"),
-                       stable=True).indices
+    own = torch.arange(nl, device=perm.device)
     local = {k: v[RANK * nl:(RANK + 1) * nl].contiguous()
-             for k, v in cold.items()}
-    received = {k: v[mine[order]].contiguous() for k, v in cold.items()}
-    # the buffer layout's helpers: in ops/permute.py beside the packed
-    # kernel, in parallel/collectives.py in a checkout from before it
-    pack_words = getattr(permlib, "pack_words", None) or collectives.pack_words
-    unpack_words = getattr(permlib, "unpack_words", None) or \
-        collectives.unpack_words
-    words = pack_words(received)
-    packed = hasattr(permlib, "permute_pack")
-    want_pack = pack_words(
-        {k: torch.index_select(v, 0, send_idx) for k, v in local.items()})
-    ok &= line("resort_pack", send_idx, local, nl,
-               (lambda: [permlib.permute_pack(send_idx, local)])
-               if packed else None,
-               lambda: pack_words(permlib.permute_fields(send_idx, local)),
-               [want_pack])
-    want_unpack = [v[mine] for v in cold.values()]
-    ok &= line("resort_unpack", inv, received, nl,
-               (lambda: list(permlib.permute_unpack(inv, words,
-                                                    received).values()))
-               if packed else None,
+             for k, v in rows.items()}
+    words = permlib.pack_words(rows)
+    ok &= line("resort_pack", own, local, nl,
+               lambda: [permlib.permute_pack(own, local)],
+               lambda: permlib.pack_words(permlib.permute_fields(own, local)),
+               [permlib.pack_words(local)])
+    ok &= line("resort_unpack", mine, rows, nl,
+               lambda: list(permlib.permute_unpack(mine, words,
+                                                   rows).values()),
                lambda: permlib.permute_fields(
-                   inv, unpack_words(words, received)),
-               want_unpack)
+                   mine, permlib.unpack_words(words, rows)),
+               [v[mine] for v in rows.values()], moved=local)
     return 0 if ok else 1
 
 

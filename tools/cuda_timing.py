@@ -12,7 +12,7 @@ means the same thing in both:
   device time alone, and beside it the host's microseconds per call.
 - :func:`bound_ms`: the least time the card could take for some bytes and
   operations: the bytes over the memory rate or the operations over the
-  float32 rate, whichever is longer.
+  float32 rate (float64's for float64 work), whichever is longer.
 
 Import it with the ``tools`` directory on ``sys.path``.
 """
@@ -22,10 +22,11 @@ import time
 
 import torch
 
-# published H100 SXM peaks: HBM bytes/s and
-# float32 FLOP/s outside the tensor cores
+# published H100 SXM peaks: HBM bytes/s, and float32 and float64 FLOP/s
+# outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 # the head start of led_ms' calls: ~100 ms at the H100's clock, four times
 # the longest enqueue seen (50 calls of 0.46 ms on a loaded host)
 LEAD_CYCLES = 200_000_000
@@ -76,8 +77,10 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    """(least ms, "bytes" or "operations"): what bounds the work."""
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S):
+    """(least ms, "bytes" or "operations"): what bounds the work, its
+    operations at ``ops_per_s``."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

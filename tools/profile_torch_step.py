@@ -128,11 +128,12 @@ class Stepper:
         return self.step()
 
 
-def eager_step(params, start) -> Stepper:
-    """The eager step (``get_step_fn`` called directly), from a copy of
+def eager_step(params, start, fn=None) -> Stepper:
+    """The eager step (``get_step_fn`` called directly, or ``fn``: the
+    spatial decomposition's ``spatial_step_fn``), from a copy of
     ``start``."""
     from sph_project_tpu_torch import sim as simlib
-    fn = simlib.get_step_fn(params)
+    fn = fn or simlib.get_step_fn(params)
     box = {}
 
     def reset():
