@@ -3893,13 +3893,14 @@ def main() -> int:
             rec["launches"] += launches10.get(rec["name"], 0)
 
     # ---- 12. records -------------------------------------------------------
-    # per engine: every body but the contact pass, the DEM pass and the PBF
-    # bodies at the flagship's shapes, the rigid variants, the bodies of a
-    # PBF step in 3D and in 2D, phase 8's instances and its DEM pass, and
-    # phase 9's body on the extended layout; the gather, and its resort pack
-    # and unpack; the WHILE node's condition kernel; the polar factor
+    # per engine: every body but the contact pass, the DEM pass, the counting
+    # walk of a traced step and the PBF bodies at the flagship's shapes, the
+    # rigid variants, the bodies of a PBF step in 3D and in 2D, phase 8's
+    # instances and its DEM pass, and phase 9's body on the extended layout;
+    # the gather, and its resort pack and unpack; the WHILE node's condition
+    # kernel; the polar factor
     n_pbf = len([b for b in pk.BODIES if b.startswith("pbf_")])
-    check(len(records) == 2 * (len(pk.BODIES) - 2 - n_pbf + len(RIGID_VARIANTS)
+    check(len(records) == 2 * (len(pk.BODIES) - 3 - n_pbf + len(RIGID_VARIANTS)
                                + 2 * len(PBF_BODIES) + len(measured) + 2) + 5,
           "a kernel has no record")
     say(json.dumps({"kernels": records}))

@@ -11,6 +11,13 @@ is no fallback from one to the other.
 
     python run_simulation_torch.py --scene_file data/scenes/smoke_test.json
     python -m sph_project_tpu_torch --scene_file ... --device cpu
+
+``--trace_file PATH`` captures the step with tracing on (``sim.py``: the
+step's spans stamped on the device, the CLI's host spans ``sph.load``,
+``sph.read``, ``sph.export``, ``sph.checkpoint`` beside the simulation's),
+reads the spans after every step, adds each step's device time per stage to
+its ``--log_json`` line (``stage_ms``) and at the end writes every span,
+host and device on the host's clock, as a Chrome trace to PATH.
 """
 from __future__ import annotations
 
@@ -39,15 +46,22 @@ def main(argv=None):
     parser.add_argument("--viewer", type=int, default=0, metavar="PORT",
                         help="serve a live browser view on this port "
                              "(the GGUI-window counterpart; 0 = off)")
+    parser.add_argument("--trace_file", default=None,
+                        help="capture the step with tracing on and write "
+                             "its spans here as a Chrome trace")
     args = parser.parse_args(argv)
 
     from .io import checkpoint
     from .io.exporters import FrameExporter
+    from .ops import graph_loop
     from .scene import load_scene
     from .sim import Simulation
+    from .utils import telemetry
     from .utils.telemetry import StepTelemetry
 
-    scene, state = load_scene(args.scene_file)
+    trace = graph_loop.Trace(args.device) if args.trace_file else None
+    with graph_loop.host_span("sph.load", trace):
+        scene, state = load_scene(args.scene_file)
     cfg = scene.config
     params = scene.params
 
@@ -72,7 +86,7 @@ def main(argv=None):
             export_frame=bool(cfg.get_cfg("exportFrame")),
         )
 
-    sim = Simulation(scene, state, device=args.device)
+    sim = Simulation(scene, state, device=args.device, trace=trace or False)
 
     if args.resume:
         # replaces the prepared state; nothing is prepared again
@@ -90,14 +104,20 @@ def main(argv=None):
         print(f"live viewer: http://localhost:{viewer.port}")
 
     telem = StepTelemetry(log_file=args.log_json,
-                          print_every=0 if args.quiet else 1)
+                          print_every=0 if args.quiet else 1, trace=trace)
+    reads = []
     start_cnt = int(sim.state.step_count)
     t_prev = time.perf_counter()
     for cnt in range(start_cnt, total_rounds):
         diag = sim.step()
-        telem.record(diag, cnt, params.n_particles)
+        stages = None
+        if trace is not None:
+            reads.append(sim.spans())
+            stages = telemetry.stage_ms(reads[-1]).get(trace.replay)
+        telem.record(diag, cnt, params.n_particles, stages=stages)
         if exporter is not None and cnt % output_interval == 0:
-            exporter.dump(sim.state, cnt)
+            with graph_loop.host_span("sph.export", trace):
+                exporter.dump(sim.state, cnt)
         if viewer is not None and cnt % max(output_interval // 4, 1) == 0:
             now = time.perf_counter()
             # steps elapsed since the previous update, not 1 (the update
@@ -107,10 +127,16 @@ def main(argv=None):
                           max(now - t_prev, 1e-9))
             t_prev = now
         if args.checkpoint_interval and cnt and cnt % args.checkpoint_interval == 0:
-            checkpoint.save(os.path.join(out_dir, "ckpt"), sim.state)
+            with graph_loop.host_span("sph.checkpoint", trace):
+                checkpoint.save(os.path.join(out_dir, "ckpt"), sim.state)
 
     summ = telem.summary(params.n_particles)
     telem.close()
+    if trace is not None:
+        reads.append(sim.spans())
+        telemetry.write_chrome_trace(args.trace_file, reads)
+        print(f"spans: {sum(len(r['spans']) for r in reads)} written to "
+              f"{args.trace_file}")
     if viewer is not None:
         viewer.close()
     if summ["steps"] > 0:

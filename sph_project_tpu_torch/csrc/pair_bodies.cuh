@@ -63,6 +63,7 @@ enum Body {
   BODY_PBF_LAMBDA = 19,
   BODY_PBF_FIX = 20,
   BODY_RIGID_DEM = 21,
+  BODY_PAIR_COUNT = 22,
 };
 
 // Mirrors ops/pair_kernels.py PairArgs (ctypes), field for field.
@@ -810,6 +811,19 @@ struct PbfFix {
   }
 };
 
+// The counting walk of a traced step (pair_kernels.pair_count_body): kept,
+// the pairs the walk's test accepts, and tested, the candidates it tests
+// (the row itself included), which the walk adds (COUNTS_TESTS,
+// pair_walk.cuh). Per row, exact in float32 below 2^24.
+template <class K, int D>
+struct PairCount {
+  static constexpr int DIM = D;
+  static constexpr int NOUT = 2;
+  static constexpr bool COUNTS_TESTS = true;
+  __device__ void load(const PairArgs&, int) {}
+  __device__ void pair(const PairArgs&, int, const float*, float, float* acc) { acc[0] += 1.0f; }
+};
+
 // The bodies with a flag or a channel count beside the kind and the
 // dimension, as templates on (K, D) alone for launch_kd
 template <class K, int D>
@@ -917,6 +931,7 @@ static int launch_body(int body, const PairArgs& a, cudaStream_t s) {
     case BODY_PBF_LAMBDA: return launch_kd<Launch, PbfLambda>(a, 1 + d, s);
     case BODY_PBF_FIX: return launch_kd<Launch, PbfFix>(a, d, s);
     case BODY_RIGID_DEM: return launch_kd<Launch, RigidDem>(a, d, s);
+    case BODY_PAIR_COUNT: return launch_kd<Launch, PairCount>(a, 2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

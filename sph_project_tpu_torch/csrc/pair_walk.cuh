@@ -78,6 +78,18 @@ struct BlockGroup {
   __device__ void sync() const { __syncthreads(); }
 };
 
+// A body that counts the candidates its row tests (PairCount, the counting
+// walk) says so with COUNTS_TESTS: the walk adds them to its last sum. No
+// other body declares it, and their walks compile as they would without it.
+template <class B, class = void>
+struct CountsTests {
+  static constexpr bool value = false;
+};
+template <class B>
+struct CountsTests<B, decltype(void(B::COUNTS_TESTS))> {
+  static constexpr bool value = B::COUNTS_TESTS;
+};
+
 // One row's state: its position, the body's own fields, the sums and the list.
 template <class B>
 struct Row {
@@ -142,6 +154,7 @@ struct Row {
   // Every lane of the warp calls it, with an empty run if it has none: the
   // decision to flush is taken by the warp.
   __device__ void walk(const PairArgs& a, const S* sp, int j0, int j1) {
+    if constexpr (CountsTests<B>::value) acc[B::NOUT - 1] += (float)max(j1 - j0, 0);
     int j = j0;
     const int* const full = list + LIST_CAP * stride;
     for (;;) {

@@ -510,6 +510,16 @@ def pbf_fix_body(cx, params, flags=0):
 
 # one tag per dynamic body; with the static channel, 27 channels at the most
 # (CONTACT_CHANNELS_MAX in csrc/pair_bodies.cuh)
+def pair_count_body(cx, params, flags=0):
+    """The counting walk of a traced step (``sim.count_pairs``): per row,
+    the pairs kept (``kept``: j != i inside the radius) and the candidates
+    the walk tests (``tested``, the row itself included). The CUDA body
+    (``PairCount``) keeps the first; the walk adds the second."""
+    _, _, mask = cx.geometry()
+    one = torch.ones(mask.shape, dtype=torch.float32, device=mask.device)
+    return {"kept": cx.sum(one, mask), "tested": cx.sum(one, cx.tested())}
+
+
 _CHAN_TAGS = "abcdefghijklmnopqrstuvwxyz"
 
 
@@ -607,6 +617,8 @@ BODIES = {
     # shape matching's DEM contact, on the dynamic rigid rows
     "rigid_dem": (21, rigid_dem_body, _vec("f"),
                   ("pos", "vel", "material", "object_id")),
+    # the counting walk of a traced step
+    "pair_count": (22, pair_count_body, ("kept", "tested"), ("pos",)),
 }
 KINDS = ("cubic", "poly6")
 # name -> (outputs a body adds under flags & RIGID, after its others; the
@@ -1001,10 +1013,11 @@ def run(name: str, env: PairEnv, fields: Dict[str, torch.Tensor],
     if not isinstance(env, PairEnv):
         return env.run(name, fields, params, produce, flags)
     kind = env.cells.device.type
-    if kind == "cuda":
-        out = run_cuda(name, env, fields, params, produce, flags)
-    elif kind == "cpu":
-        out = run_plain_body(name, env, fields, params, produce, flags)
-    else:
-        raise ValueError(f"unsupported device {env.cells.device}")
+    with graph_loop.span("pair." + name):
+        if kind == "cuda":
+            out = run_cuda(name, env, fields, params, produce, flags)
+        elif kind == "cpu":
+            out = run_plain_body(name, env, fields, params, produce, flags)
+        else:
+            raise ValueError(f"unsupported device {env.cells.device}")
     return collect(out)

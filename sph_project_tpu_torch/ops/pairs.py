@@ -193,6 +193,14 @@ class Cx:
             self._geometry = (R, d2, mask)
         return self._geometry
 
+    def tested(self) -> torch.Tensor:
+        """The candidates the engine's kernel tests against the radius (the
+        row itself included): the row's runs, under the slab-window engine
+        its pieces of the windows."""
+        if self._row_match is None:
+            return self._valid
+        return self._valid & self._row_match
+
     @staticmethod
     def sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return torch.where(mask, x, torch.zeros_like(x)).sum(dim=-1)

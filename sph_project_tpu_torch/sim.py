@@ -11,6 +11,24 @@ package's ``jax.jit`` step with ``lax.while_loop`` solvers, and ``run`` of
 its ``lax.scan``. On the CPU the same step runs eagerly. Every tensor of the
 state lives on the simulation's device, and the device defaults to
 ``"cuda"``; on a host without CUDA, ask for ``device="cpu"`` explicitly.
+
+Spans (``ops/graph_loop.py``): a simulation made with ``trace=True`` (or
+switched by :meth:`Simulation.trace`) captures its step with the stages
+below as spans, stamped on the device at every replay, and marks its host
+work with the ``sph.*`` host spans; :meth:`Simulation.spans` reads them.
+The step's spans: ``step`` (the graph's first and last node), inside it
+``nonpressure``, the solver loops (``dfsph.density``, ``dfsph.divergence``,
+``pcisph.pressure``, ``iisph.pressure``, ``viscosity.cg``, each with a tick
+an iteration), ``advect`` (the position update, the rigid stage and the
+clamp), ``neighbor_prep`` (the sort and the pair environment),
+``pair_count`` (the counting walk, in a traced step only: the counters
+``pair_candidates`` and ``pair_kept``), ``density_alpha``, ``diagnostics``,
+``copy_back`` (the new state into the static buffers, and the diagnostics
+row), and ``pair.<body>`` around every pair pass. The host spans:
+``sph.prepare``, ``sph.warmup``, ``sph.capture``, ``sph.replay`` (the graph
+launch and the launch accounting), ``sph.run``, ``sph.restore`` (the
+``state`` setter), and in the CLI ``sph.load``, ``sph.read``,
+``sph.export`` and ``sph.checkpoint``.
 """
 from __future__ import annotations
 
@@ -115,10 +133,15 @@ class Plumbing:
     @staticmethod
     def neighbor_prep(state: SimState, params: SimParams):
         """Sort every carried array by grid cell and build the pair
-        environment (:221)."""
-        state, cells_sorted, _ = sort_state(state, params)
-        produce = produces_output(state.particles, state.rigid, params)
-        return state, build_env(cells_sorted, produce, params)
+        environment (:221); in a traced step, then the counting walk
+        (:func:`count_pairs`)."""
+        with graph_loop.span("neighbor_prep"):
+            state, cells_sorted, _ = sort_state(state, params)
+            produce = produces_output(state.particles, state.rigid, params)
+            env = build_env(cells_sorted, produce, params)
+        if graph_loop.tracing_on():
+            count_pairs(state.particles, env, params)
+        return state, env
 
     @staticmethod
     def non_pressure_acceleration(p: ParticleState, rigid: RigidState,
@@ -128,15 +151,16 @@ class Plumbing:
         or implicit. The implicit solve's new ``visc_x`` goes no further, as
         in the JAX package (:269-275, which returns only the particles and
         bodies): every solve starts from x0 = v."""
-        acc = common.gravity_acceleration(p, params)
-        if params.viscosity_method == "implicit":
-            from .solvers import viscosity_cg
-            p, rigid, _ = viscosity_cg.implicit_viscosity_solve(
-                p.replace(acc=acc), rigid, state, env, params)
-            return p, rigid
-        a_v, rf, rt = common.nonpressure_fused(p, rigid, env, params)
-        rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
-        return p.replace(acc=acc + a_v), rigid
+        with graph_loop.span("nonpressure"):
+            acc = common.gravity_acceleration(p, params)
+            if params.viscosity_method == "implicit":
+                p, rigid, _ = viscosity_cg.implicit_viscosity_solve(
+                    p.replace(acc=acc), rigid, state, env, params)
+                return p, rigid
+            a_v, rf, rt = common.nonpressure_fused(p, rigid, env, params)
+            rigid = rigid.replace(force=rigid.force + rf,
+                                  torque=rigid.torque + rt)
+            return p.replace(acc=acc + a_v), rigid
 
     @staticmethod
     def activate_entries(state: SimState, params: SimParams) -> SimState:
@@ -211,6 +235,12 @@ class Plumbing:
         device (the environments have no caps) and, under the spatial
         decomposition, the halo's shortfall (``env.overflow``) summed over
         the ranks (:384)."""
+        with graph_loop.span("diagnostics"):
+            return Plumbing._diagnostics(state, env, params, extra)
+
+    @staticmethod
+    def _diagnostics(state: SimState, env: pairs.PairEnv, params: SimParams,
+                     extra: dict | None) -> dict:
         p = state.particles
         dev = p.pos.device
         fluid = p.material == MATERIAL_FLUID
@@ -241,6 +271,21 @@ class Plumbing:
         if extra:
             d.update(extra)
         return d
+
+
+def count_pairs(p: ParticleState, env: pairs.PairEnv,
+                params: SimParams) -> None:
+    """The counting walk of a traced step (span ``pair_count``): the pair
+    kernels' walk over ``env``'s producing rows with a counting body, which
+    tests exactly the candidates the passes test; the candidates tested and
+    the pairs kept go to the trace's counters ``pair_candidates`` and
+    ``pair_kept``."""
+    from .ops import pair_kernels
+    with graph_loop.span("pair_count"):
+        out = pair_kernels.run("pair_count", env, {"pos": p.pos}, params)
+        graph_loop.count("pair_candidates",
+                         out["tested"].to(torch.int64).sum())
+        graph_loop.count("pair_kept", out["kept"].to(torch.int64).sum())
 
 
 def graphed(params: SimParams) -> bool:
@@ -368,28 +413,44 @@ class Simulation:
     and assigning :attr:`state` copies into them. ``step`` replays once,
     ``run(n)`` n times with no host read, as ``lax.scan`` runs the JAX
     package's (:501). A capture that fails raises. On the CPU the step runs
-    eagerly through the same code, its loops on the host."""
+    eagerly through the same code, its loops on the host.
 
-    def __init__(self, scene, state: SimState, device="cuda"):
+    ``trace`` (False, True or a ``graph_loop.Trace`` of ``device`` to record
+    into, which may already hold the CLI's host spans) is chosen when
+    the step is captured: without it the step is captured with no stamp
+    and nothing of a trace is allocated; with it the step's spans are
+    stamped at every replay, the counting walk runs once a step, and the
+    host spans are recorded (module docstring). :meth:`trace` captures the
+    step again, on the same buffers, with tracing on or off; :meth:`spans`
+    reads what was recorded."""
+
+    def __init__(self, scene, state: SimState, device="cuda", trace=False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Simulation(device='cuda'): CUDA is not "
                                "available on this host; pass device='cpu' "
                                "to run the plain PyTorch path")
-        self._start(scene, device, get_step_fn(scene.params),
-                    prepare(state.to(device), scene.params),
-                    device.type == "cuda" and graphed(scene.params))
+        if trace is True:
+            trace = graph_loop.Trace(device)
+        trace = trace or None
+        with graph_loop.host_span("sph.prepare", trace):
+            state = prepare(state.to(device), scene.params)
+        self._start(scene, device, get_step_fn(scene.params), state,
+                    device.type == "cuda" and graphed(scene.params), trace)
 
     def _start(self, scene, device: torch.device, step, state: SimState,
-               capture: bool) -> None:
+               capture: bool, trace=None) -> None:
         """Hold ``state`` (prepared, on ``device``) and its step function,
-        and capture the step if ``capture``."""
+        and capture the step if ``capture`` (with the spans of ``trace``,
+        a ``graph_loop.Trace``, if given)."""
         self.scene = scene
         self.params = scene.params
         self.device = device
         self._step = step
         self._graph = None
         self._state = state
+        self._trace = trace
+        self._tracing = trace is not None
         self.warmup_ms = self.capture_ms = 0.0
         if capture:
             self._capture()
@@ -400,36 +461,56 @@ class Simulation:
 
     @state.setter
     def state(self, value: SimState) -> None:
-        if self._graph is None:
-            self._state = value
-        else:
-            copy_state(self._state, value)
+        with graph_loop.host_span("sph.restore", self.recording):
+            if self._graph is None:
+                self._state = value
+            else:
+                copy_state(self._state, value)
 
-    def _capture(self) -> None:
-        """The warm-up step on a copy of the state, then the capture."""
+    @property
+    def recording(self):
+        """The ``graph_loop.Trace`` that records now: None while tracing is
+        off."""
+        return self._trace if self._tracing else None
+
+    def _capture(self, static: SimState | None = None) -> None:
+        """The warm-up step on a copy of the state, then the capture of the
+        step on ``static``'s buffers (by default a copy of the state made
+        after the warm-up), which become :attr:`state`."""
+        trace = self.recording
         t0 = time.perf_counter()
-        with graph_loop.uncounted(), graph_loop.warming():
-            self._step(_cloned(self._state))
-        torch.cuda.synchronize(self.device)
+        with graph_loop.host_span("sph.warmup", trace):
+            with graph_loop.uncounted(), graph_loop.warming(), \
+                    graph_loop.tracing(trace):
+                self._step(_cloned(self._state))
+            torch.cuda.synchronize(self.device)
+            if trace is not None:
+                # the warm-up's stamps are not a replay's
+                trace.reset_device()
         t1 = time.perf_counter()
-        static = _cloned(self._state)
+        if static is None:
+            static = _cloned(self._state)
 
         def step():
-            new, diag = self._step(static)
-            copy_state(static, new)
-            keys = sorted(diag)
-            bad = [k for k in keys if diag[k].dim() != 0 or diag[k].dtype
-                   not in (torch.int32, torch.float32)]
-            if bad:
-                raise ValueError(f"diagnostics {bad} are not 0-dim int32 or "
-                                 f"float32 tensors")
-            # one row of 32-bit words, the float32 keys' bits kept
-            row = torch.stack([diag[k].view(torch.int32) for k in keys])
+            with graph_loop.span("step", begin=True):
+                new, diag = self._step(static)
+                with graph_loop.span("copy_back"):
+                    copy_state(static, new)
+                    keys = sorted(diag)
+                    bad = [k for k in keys if diag[k].dim() != 0 or
+                           diag[k].dtype not in (torch.int32, torch.float32)]
+                    if bad:
+                        raise ValueError(f"diagnostics {bad} are not 0-dim "
+                                         f"int32 or float32 tensors")
+                    # one row of 32-bit words, the float32 keys' bits kept
+                    row = torch.stack([diag[k].view(torch.int32)
+                                       for k in keys])
             return keys, [diag[k].dtype for k in keys], row
 
         viscosity_cg.last_solve.clear()
-        self._graph, self._counts, (keys, dtypes, self._row) = \
-            graph_loop.capture(step, self.device)
+        with graph_loop.host_span("sph.capture", trace):
+            self._graph, self._counts, (keys, dtypes, self._row) = \
+                graph_loop.capture(step, self.device, trace)
         self._keys, self._dtypes = keys, dtypes
         # the implicit solve's numbers of a replay are the graph's tensors
         self._last_solve = dict(viscosity_cg.last_solve)
@@ -437,21 +518,58 @@ class Simulation:
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t1) * 1e3
 
+    def trace(self, on: bool = True) -> None:
+        """Tracing on or off from the next step: on the card the step is
+        captured again on the buffers of :attr:`state` (the warm-up step
+        and the capture, as at the start), its old graph released; on the
+        CPU only the recording changes. A trace made here is kept, and read
+        by :meth:`spans`."""
+        if on and self._trace is None:
+            self._trace = graph_loop.Trace(self.device)
+        self._tracing = bool(on)
+        if self._graph is not None:
+            graph_loop.flush_launches()
+            self._graph = self._counts = self._row = None
+            self._capture(self._state)
+
+    def spans(self) -> dict:
+        """The spans, ticks and counters recorded since the last call,
+        devices' times mapped onto the host's clock (one synchronisation;
+        ``graph_loop.Trace.read``), or an empty dict without a trace."""
+        return self._trace.read() if self._trace is not None else {}
+
+    def iterations(self) -> dict:
+        """``{loop name: iterations}`` of every replay so far (one
+        synchronisation), or an empty dict for an eager step."""
+        return self._counts.iterations() if self._graph is not None else {}
+
     def _unpack(self, rows: torch.Tensor) -> dict:
         """The diagnostics of packed rows (``(..., keys)`` int32 words)."""
         return {k: rows[..., i].view(dt)
                 for i, (k, dt) in enumerate(zip(self._keys, self._dtypes))}
 
     def _replay(self) -> None:
-        self._graph.replay()
-        self._counts.replayed()
+        trace = self.recording
+        if trace is None:
+            self._graph.replay()
+            self._counts.replayed()
+        else:
+            trace.replay += 1
+            with graph_loop.host_span("sph.replay", trace):
+                self._graph.replay()
+                self._counts.replayed()
         viscosity_cg.last_solve.update(self._last_solve)
+
+    def _eager_step(self) -> dict:
+        with graph_loop.tracing(self.recording), \
+                graph_loop.span("step", begin=True):
+            self._state, diag = self._step(self._state)
+        return diag
 
     def step(self) -> dict:
         """One step; returns the diagnostics as 0-dim tensors."""
         if self._graph is None:
-            self._state, diag = self._step(self._state)
-            return diag
+            return self._eager_step()
         self._replay()
         return self._unpack(self._row.clone())
 
@@ -459,12 +577,14 @@ class Simulation:
         """``n_steps`` steps; returns the diagnostics stacked per step. On
         the card the replays write each step's diagnostics into one device
         buffer, and nothing is read on the host."""
-        if self._graph is None:
-            diags = [self.step() for _ in range(n_steps)]
-            return {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
-        rows = torch.empty((n_steps, len(self._keys)), dtype=torch.int32,
-                           device=self.device)
-        for i in range(n_steps):
-            self._replay()
-            rows[i].copy_(self._row)
-        return self._unpack(rows)
+        with graph_loop.host_span("sph.run", self.recording):
+            if self._graph is None:
+                diags = [self.step() for _ in range(n_steps)]
+                return {k: torch.stack([d[k] for d in diags])
+                        for k in diags[0]}
+            rows = torch.empty((n_steps, len(self._keys)), dtype=torch.int32,
+                               device=self.device)
+            for i in range(n_steps):
+                self._replay()
+                rows[i].copy_(self._row)
+            return self._unpack(rows)

@@ -235,7 +235,7 @@ def correct_density_error(p: ParticleState, rigid: RigidState,
         return vel, star, err, itr + 1, rf + f, rt + tq, kacc + kappa
 
     vel, _, err, itr, rf, rt, kacc = graph_loop.while_loop(
-        cond, body, (vel, star, err, itr, rf, rt, kacc))
+        cond, body, (vel, star, err, itr, rf, rt, kacc), "dfsph.density")
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     return p.replace(vel=vel), rigid, itr, err, kacc
 
@@ -280,7 +280,7 @@ def correct_divergence_error(p: ParticleState, rigid: RigidState,
         return vel, deriv, err, itr + 1, rf + f, rt + tq, kacc + kappa_v
 
     vel, _, err, itr, rf, rt, kacc = graph_loop.while_loop(
-        cond, body, (vel, deriv, err, itr, rf, rt, kacc))
+        cond, body, (vel, deriv, err, itr, rf, rt, kacc), "dfsph.divergence")
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     return p.replace(vel=vel), rigid, itr, err, kacc
 
@@ -293,11 +293,13 @@ def _nonpressure_and_density_solve(p: ParticleState, rigid: RigidState,
     viscosity the warm correction rides the non-pressure pass."""
     alpha = state.dfsph_alpha
     if params.dfsph_warm_start and params.viscosity_method == "standard":
-        kappa_w = _warm_kappa(p, state.dfsph_kappa, params)
-        a_np, vf, vt, dv, wf, wt = nonpressure_warm_fused(
-            p, rigid, kappa_w, env, params)
-        rigid = rigid.replace(force=rigid.force + vf, torque=rigid.torque + vt)
-        p = p.replace(acc=common.gravity_acceleration(p, params) + a_np)
+        with graph_loop.span("nonpressure"):
+            kappa_w = _warm_kappa(p, state.dfsph_kappa, params)
+            a_np, vf, vt, dv, wf, wt = nonpressure_warm_fused(
+                p, rigid, kappa_w, env, params)
+            rigid = rigid.replace(force=rigid.force + vf,
+                                  torque=rigid.torque + vt)
+            p = p.replace(acc=common.gravity_acceleration(p, params) + a_np)
         p = common.update_fluid_velocity(p, params)
         return correct_density_error(p, rigid, alpha, env, params,
                                      warm_pre=(kappa_w, dv, wf, wt))
@@ -317,13 +319,14 @@ def _first_half(state: SimState, env: PairEnv, params: SimParams,
     p, rigid = state.particles, state.rigid
     p, rigid, itr_d, err_d, kacc = _nonpressure_and_density_solve(
         p, rigid, state, env, params, plumbing)
-    p = common.update_fluid_position(p, rigid, params)
-    state = state.replace(particles=p, rigid=rigid)
-    if params.dfsph_warm_start:
-        state = state.replace(dfsph_kappa=kacc)
-    state = plumbing.rigid_mid(state, env, params)
-    p = common.enforce_domain_boundary(state.particles, params,
-                                       MATERIAL_FLUID)
+    with graph_loop.span("advect"):
+        p = common.update_fluid_position(p, rigid, params)
+        state = state.replace(particles=p, rigid=rigid)
+        if params.dfsph_warm_start:
+            state = state.replace(dfsph_kappa=kacc)
+        state = plumbing.rigid_mid(state, env, params)
+        p = common.enforce_domain_boundary(state.particles, params,
+                                           MATERIAL_FLUID)
     return state.replace(particles=p), dict(
         solver_iters=itr_d, solver_err=err_d * params.density0)
 
@@ -336,7 +339,8 @@ def _second_half(state: SimState, params: SimParams, plumbing,
     half's)."""
     state, env = plumbing.neighbor_prep(state, params)
     p = state.particles
-    dens, alpha, deriv0, svol = density_alpha_divergence(p, env, params)
+    with graph_loop.span("density_alpha"):
+        dens, alpha, deriv0, svol = density_alpha_divergence(p, env, params)
     p = p.replace(density=dens)
     p, rigid, itr_v, err_v, kacc_v = correct_divergence_error(
         p, state.rigid, alpha, env, params, deriv0=deriv0,

@@ -95,7 +95,8 @@ def refine(p: ParticleState, dii: torch.Tensor, aii: torch.Tensor,
         return new_p, itr + 1, err
 
     pressure, itr, err = graph_loop.while_loop(cond, body, (
-        torch.zeros_like(p.pressure), *common.loop_start(0, p.pos.device)))
+        torch.zeros_like(p.pressure), *common.loop_start(0, p.pos.device)),
+        "iisph.pressure")
     return pressure, itr, err
 
 
@@ -120,10 +121,10 @@ def step(state: SimState, params: SimParams, plumbing):
         p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
-    p = common.update_fluid_position(p, rigid, params)
-
-    state = plumbing.rigid_and_tail(
-        state.replace(particles=p, rigid=rigid,
-                      iisph_density_star=density_star), env, params)
+    with graph_loop.span("advect"):
+        p = common.update_fluid_position(p, rigid, params)
+        state = plumbing.rigid_and_tail(
+            state.replace(particles=p, rigid=rigid,
+                          iisph_density_star=density_star), env, params)
     return state, plumbing.diagnostics(state, env, params, extra=dict(
         solver_iters=itr, solver_err=err * params.density0))

@@ -103,7 +103,8 @@ def refine(p: ParticleState, rigid: RigidState, env: PairEnv,
         return pressure, pred_v, pred_x, itr + 1, err
 
     pressure, _, _, itr, err = graph_loop.while_loop(cond, body, (
-        pressure, pred_v, pred_x, *common.loop_start(0, p.pos.device)))
+        pressure, pred_v, pred_x, *common.loop_start(0, p.pos.device)),
+        "pcisph.pressure")
     return pressure, itr, err
 
 
@@ -122,9 +123,9 @@ def step(state: SimState, params: SimParams, plumbing):
         p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
-    p = common.update_fluid_position(p, rigid, params)
-
-    state = plumbing.rigid_and_tail(state.replace(particles=p, rigid=rigid),
-                                    env, params)
+    with graph_loop.span("advect"):
+        p = common.update_fluid_position(p, rigid, params)
+        state = plumbing.rigid_and_tail(
+            state.replace(particles=p, rigid=rigid), env, params)
     return state, plumbing.diagnostics(state, env, params, extra=dict(
         solver_iters=itr, solver_err=err * params.density0))

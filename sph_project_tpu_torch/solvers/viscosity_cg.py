@@ -124,7 +124,7 @@ def implicit_viscosity_solve(p: ParticleState, rigid: RigidState,
         return x, r_new, pdir, itr + 1, torch.sqrt(rr_new)
 
     x, _, _, itr, err = graph_loop.while_loop(
-        cond, body, (x, r, r, *common.loop_start(0, dev)))
+        cond, body, (x, r, r, *common.loop_start(0, dev)), "viscosity.cg")
 
     # the standard viscosity at the solution (:149-155), with the surface
     # tension and, with dynamic bodies, the viscosity wrench

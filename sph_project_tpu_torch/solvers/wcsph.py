@@ -10,6 +10,7 @@ import torch
 
 from ..core.params import MATERIAL_FLUID, SimParams
 from ..core.state import ParticleState, SimState
+from ..ops import graph_loop
 from . import common
 
 
@@ -37,8 +38,8 @@ def step(state: SimState, params: SimParams, plumbing):
         p, rigid, env, params, with_wrench=params.has_dynamic_rigid)
     rigid = rigid.replace(force=rigid.force + rf, torque=rigid.torque + rt)
     p = common.update_fluid_velocity(p.replace(acc=acc), params)
-    p = common.update_fluid_position(p, rigid, params)
-
-    state = plumbing.rigid_and_tail(state.replace(particles=p, rigid=rigid),
-                                    env, params)
+    with graph_loop.span("advect"):
+        p = common.update_fluid_position(p, rigid, params)
+        state = plumbing.rigid_and_tail(
+            state.replace(particles=p, rigid=rigid), env, params)
     return state, plumbing.diagnostics(state, env, params)
