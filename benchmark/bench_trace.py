@@ -38,7 +38,10 @@ def union_ns(intervals) -> float:
 
 class Families:
     """Kernel name to family, from ``families.json``: the first pattern
-    that matches; a pair kernel's family names its body."""
+    that matches; a pair kernel's family names its body, and ``+rigid``
+    where the name is of the instance with the dynamic-rigid outputs
+    (``rigid_pattern``: its flag, the first template argument, is
+    ``true``)."""
 
     def __init__(self, path: str):
         with open(path) as f:
@@ -46,13 +49,17 @@ class Families:
         self.rules = [(re.compile(r["match"], re.I), r["family"])
                       for r in spec["families"]]
         self.body_re = re.compile(spec["body_pattern"])
+        self.rigid_re = re.compile(spec["rigid_pattern"])
         self.bodies = spec["bodies"]
         self._memo: dict = {}
 
     def body(self, name: str):
         """The pair body a kernel runs, or None."""
         m = self.body_re.search(name)
-        return self.bodies.get(m.group(1)) if m else None
+        body = self.bodies.get(m.group(1)) if m else None
+        if body and self.rigid_re.search(name):
+            body += "+rigid"
+        return body
 
     def __call__(self, name: str) -> str:
         fam = self._memo.get(name)

@@ -20,6 +20,25 @@ carried volumes and masses of every row; and the iteration counts against
 the reference's. A field or a count that the cell's reference does not
 return (``alpha`` and the correctors' counts are DFSPH's, ``cg_iters`` the
 implicit viscosity's) is not compared.
+
+Where the reference returns each row's ``object_id`` and its ``bodies``
+(``{object id: {"com", "rot", "vel", "omega"}}``, the present dynamic
+bodies) and the program's held state has them too, it also counts and
+measures the bodies:
+
+- ``object_breaks``: matched rows whose object ids differ, and bodies
+  present on one side only;
+- ``rigid_pos_gap``: the widest position gap of the rows of the reference's
+  bodies, in particle diameters;
+- ``body_pos_gap``: the widest gap of a centre of mass, in diameters;
+- ``body_rot_gap``: the largest angle of R_prog^T R_ref, in radians;
+- ``body_vel_gap``: the widest gap of a body's velocity, against the
+  largest fluid speed that ``vel_gap`` takes;
+- ``body_omega_gap``: the widest gap of an angular velocity times the
+  body's largest row distance from its centre, against that same speed.
+
+A reference that returns no bodies yields none of these, so a limit that
+names one fails.
 """
 from __future__ import annotations
 
@@ -27,7 +46,7 @@ import math
 
 import torch
 
-from reference.sph import FLUID, Physics, close_pairs
+from reference.sph import FLUID, RIGID, Physics, close_pairs
 
 # iteration counts compared where the reference returns them
 ITERS = ("solver_iters", "div_iters")
@@ -142,7 +161,68 @@ def compare(out: dict, ref: dict, ph: Physics) -> dict:
                                  max(amax, 1e-30))
     if "cg_iters" in ref:
         nums["cg_gap"] = abs(out["cg_iters"] - ref["cg_iters"])
+    if "bodies" in ref and "bodies" in out:
+        nums.update(body_numbers(out, ref, ok, src_ok, ph, max(vmax, 1e-12)))
     return nums
+
+
+def rotation_angle(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The angle of the rotation a^T b, for (..., d, d) rotations, d = 2 or
+    3, from its sine and cosine (steady at small angles)."""
+    m = a.transpose(-1, -2).double() @ b.double()
+    if m.shape[-1] == 2:
+        return torch.atan2(m[..., 1, 0] - m[..., 0, 1],
+                           m[..., 0, 0] + m[..., 1, 1]).abs()
+    axial = torch.stack([m[..., 2, 1] - m[..., 1, 2],
+                         m[..., 0, 2] - m[..., 2, 0],
+                         m[..., 1, 0] - m[..., 0, 1]], -1)
+    sin = 0.5 * torch.sqrt((axial * axial).sum(-1))
+    cos = 0.5 * (m.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0)
+    return torch.atan2(sin, cos)
+
+
+def _widest(gaps: list, scale: float) -> float:
+    if not all(math.isfinite(g) for g in gaps):
+        return math.inf
+    return max(gaps, default=0.0) / scale
+
+
+def body_numbers(out: dict, ref: dict, ok, src_ok, ph: Physics,
+                 speed: float) -> dict:
+    """The body numbers of :func:`compare` (module docstring): ``ok`` the
+    matched program rows, ``src_ok`` their reference rows."""
+    rb, ob = ref["bodies"], out["bodies"]
+    obj_o, obj_r = out["object_id"][ok], ref["object_id"][src_ok]
+    breaks = int((obj_o != obj_r).sum()) + len(set(rb) ^ set(ob))
+    ids = torch.tensor(sorted(rb), dtype=obj_r.dtype, device=obj_r.device)
+    in_body = torch.isin(obj_r, ids) & \
+        (ref["material"][src_ok] == RIGID)
+    rows = ok[in_body]
+    common = sorted(set(rb) & set(ob))
+
+    def norm(k, i):
+        d = ob[i][k].double().flatten() - rb[i][k].double().flatten()
+        return float(torch.sqrt((d * d).sum()))
+
+    reach = []
+    act = ref["material"] != NONE
+    for i in common:
+        sel = act & (ref["object_id"] == i)
+        d = ref["pos"][sel].double() - rb[i]["com"].double()
+        reach.append(float(torch.sqrt((d * d).sum(1)).max())
+                     if d.shape[0] else 0.0)
+    return dict(
+        object_breaks=breaks,
+        rigid_pos_gap=_gap(out["pos"], ref["pos"][src_ok[in_body]], rows,
+                           ph.diameter),
+        body_pos_gap=_widest([norm("com", i) for i in common], ph.diameter),
+        body_rot_gap=_widest([float(rotation_angle(ob[i]["rot"],
+                                                   rb[i]["rot"]))
+                              for i in common], 1.0),
+        body_vel_gap=_widest([norm("vel", i) for i in common], speed),
+        body_omega_gap=_widest([norm("omega", i) * r
+                                for i, r in zip(common, reach)], speed),
+    )
 
 
 def gate_failures(vals: dict, gates: dict, fluid0: float) -> int:

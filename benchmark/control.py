@@ -31,8 +31,7 @@ def control_step(start: dict, ph, ref, dtype=None) -> dict:
 
     import check
     dtype = dtype or torch.bfloat16
-    out = ref.step(start["pos"], start["vel"], start["material"], ph,
-                   dtype=dtype)
+    out = ref.step(start, ph, dtype=dtype)
     out = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point()
                else v) for k, v in out.items()}
     return check.sort_rows(out, ph)

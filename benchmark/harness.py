@@ -19,7 +19,40 @@ and one host read of its diagnostics, which synchronises; every
 ``Simulation.state`` setter, so the window replays one fixed segment of the
 trajectory. The state after the first step of the first segment is copied
 aside and, once the window has closed and the simulation is freed, held to
-the plain reference's step from the snapshot (``check.py``).
+the plain reference's step from the snapshot (``check.py``). Where the
+snapshot holds a present dynamic body, the copy also keeps every row's
+object id and each body's ``com``, ``rot``, ``vel`` and ``omega``, and the
+bodies' state after each segment's first step is held to the first
+segment's (``segment_breaks``); without one the window holds and allocates
+nothing more.
+
+The reference module ``reference/<name>.py`` provides
+
+- ``physics_of(config) -> ph``: the constants of a configuration file, an
+  object with at least ``rho0``, ``max_iter``, ``max_iter_v``,
+  ``viscosity_method``, ``diameter``, ``h``, ``domain_start`` and
+  ``grid_num`` (``check.cell_ids`` bins by the last three); it raises
+  ``ValueError`` on a configuration it does not model;
+- ``step(start, ph, dtype) -> dict``: one step from the snapshot, computed in
+  ``dtype`` (float64; the control passes a lower precision);
+- ``Pairs(x, active, ph)``: the pairs within the support radius, with ``i``,
+  ``j`` and ``d2`` (the pair counts of the roofline readers);
+- ``FLUID`` and ``RIGID``: the material codes.
+
+``start`` holds every tensor of the snapshot by name: the particle fields
+(``pos``, ``vel``, ``material``, ``object_id``, ``is_dynamic``,
+``rigid_rest_pos``, ``rest_volume``, ``mass``, ``density`` and the rest of
+``ParticleState``), the state's own (``t``, ``step_count`` and what the
+program carries between steps, such as ``dfsph_alpha``) and the bodies'
+``RigidState`` fields under ``start["rigid"]``. A reference reads what it
+models and works the rest out again (``reference/sph.py`` reads ``pos``,
+``vel`` and ``material``). It returns, as float tensors of any row order,
+``pos``, ``vel``, ``density``, ``rest_volume``, ``mass`` and ``material``;
+it may return ``alpha``, the iteration counts of ``check.ITERS`` and
+``cg_iters``, and, for a configuration with moving bodies, each row's
+``object_id`` and ``bodies``: ``{object id: {"com", "rot", "vel",
+"omega"}}`` of the present dynamic bodies. ``check.compare`` compares what
+it returns and nothing else.
 """
 from __future__ import annotations
 
@@ -79,9 +112,25 @@ def load_cell(root: str, name: str, bench_dir: str = HERE) -> dict:
                 bench_dir=bench_dir)
 
 
-def reference_of(config: dict):
-    """The module ``reference.<name>`` that the configuration names."""
-    return importlib.import_module(f"reference.{config['reference']}")
+def reference_of(config: dict, bench_dir: str = HERE):
+    """The module ``reference/<name>.py`` of ``bench_dir`` that the
+    configuration names: ``reference.<name>`` where that is this file (as
+    ``check.py`` imports it), else loaded from the file under a name of its
+    own."""
+    name = f"reference.{config['reference']}"
+    path = os.path.join(bench_dir, "reference", f"{config['reference']}.py")
+    mod = sys.modules.get(name)
+    if mod is not None:
+        if os.path.samefile(mod.__file__, path):
+            return mod
+        name = f"{name}@{os.path.abspath(path)}"
+        if name in sys.modules:
+            return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(bench_dir: str, name: str):
@@ -112,13 +161,47 @@ def clone_tree(tree):
     return dataclasses.replace(tree, **out)
 
 
-def held_fields(state) -> dict:
-    """The fields of a state that the comparison reads, copied."""
+# the body fields a window holds and the comparison reads
+BODY_FIELDS = ("com", "rot", "vel", "omega")
+
+
+def held_fields(state, bodies: bool = False) -> dict:
+    """The fields of a state that the comparison reads, copied; with
+    ``bodies`` also the rows' object ids and the body table (``rigid``:
+    :data:`BODY_FIELDS` and what says which bodies are present and
+    dynamic)."""
     p = state.particles
-    return dict(pos=p.pos.clone(), vel=p.vel.clone(),
-                density=p.density.clone(), rest_volume=p.rest_volume.clone(),
-                mass=p.mass.clone(), material=p.material.clone(),
-                alpha=state.dfsph_alpha.clone())
+    out = dict(pos=p.pos.clone(), vel=p.vel.clone(),
+               density=p.density.clone(), rest_volume=p.rest_volume.clone(),
+               mass=p.mass.clone(), material=p.material.clone(),
+               alpha=state.dfsph_alpha.clone())
+    if bodies:
+        r = state.rigid
+        out["object_id"] = p.object_id.clone()
+        out["rigid"] = {k: getattr(r, k).clone() for k in
+                        BODY_FIELDS + ("is_dynamic", "present",
+                                       "obj_material")}
+    return out
+
+
+def present_bodies(rigid: dict) -> torch.Tensor:
+    """(objects,) the bodies of a body table (a dict of ``RigidState``
+    fields) that move: dynamic, present and rigid."""
+    from sph_project_tpu_torch.core.params import MATERIAL_RIGID
+    return (rigid["is_dynamic"] > 0) & (rigid["present"] > 0) & \
+        (rigid["obj_material"] == MATERIAL_RIGID)
+
+
+def bodies_of(rigid: dict) -> dict:
+    """``{object id: {field: value}}`` of the present dynamic bodies of a
+    body table."""
+    ids = torch.nonzero(present_bodies(rigid)).flatten().tolist()
+    return {i: {k: rigid[k][i] for k in BODY_FIELDS} for i in ids}
+
+
+def body_state(rigid) -> torch.Tensor:
+    """Every body's :data:`BODY_FIELDS` in one flat tensor."""
+    return torch.cat([getattr(rigid, k).flatten() for k in BODY_FIELDS])
 
 
 def jitter(state, seed: int, amplitude: float, device):
@@ -171,7 +254,7 @@ class Cell:
         self.device = torch.device(device)
         self.wrap = wrap
         cfg = spec["config"]
-        self.ref_mod = reference_of(cfg)
+        self.ref_mod = reference_of(cfg, spec["bench_dir"])
         self.ph = self.ref_mod.physics_of(cfg)
         self.gates = dict(cfg["gates"], rho0=self.ph.rho0,
                           max_iter=self.ph.max_iter,
@@ -242,6 +325,8 @@ class Cell:
         self.timings["snapshot_s"] = time.perf_counter() - t
         self.sim = self.wrap(sim) if self.wrap else sim
         self.fluid0 = int((self.snapshot.particles.material == 1).sum())
+        self.bodies = self.params.has_dynamic_rigid and bool(
+            present_bodies(self.start_state()["rigid"]).any())
         self.setup_s = time.perf_counter() - t0
 
     def window(self, seconds: float) -> None:
@@ -251,7 +336,7 @@ class Cell:
         sim = self.sim
         cg_buf = torch.zeros(seg, dtype=torch.int32, device=self.device) \
             if self.implicit else None
-        first, pass_rows = [], []
+        first, pass_rows, body_firsts = [], [], []
         self.segment_breaks = 0
         self.failed = 0
         times = []
@@ -274,8 +359,10 @@ class Cell:
             times.append(now - t_prev)
             t_prev = now
             if segments == 0 and k == 0:
-                self.held = held_fields(sim.state)
+                self.held = held_fields(sim.state, self.bodies)
                 self.held_vals = vals
+            if self.bodies and k == 0:
+                body_firsts.append(body_state(sim.state.rigid))
             pass_rows.append(vals)
             self.failed += check.gate_failures(vals, self.gates, self.fluid0)
             k += 1
@@ -283,6 +370,10 @@ class Cell:
                 break
         self.window_s = t_prev - t_start
         self._segment_done(first, pass_rows, cg_buf, segments)
+        # a later segment whose bodies left its first step otherwise than
+        # the first segment's did
+        self.segment_breaks += sum(not torch.equal(b, body_firsts[0])
+                                   for b in body_firsts[1:])
         self.held_cg = int(first[0][2]) if self.implicit else None
         self.steps = len(times)
         self.step_times = times
@@ -394,16 +485,23 @@ class Cell:
             torch.cuda.empty_cache()
 
     def start_state(self) -> dict:
-        p = self.snapshot.particles
-        return dict(pos=p.pos, vel=p.vel, material=p.material)
+        """Every tensor of the snapshot by name (the module docstring), not
+        copied."""
+        s = self.snapshot
+        out = {f.name: getattr(s.particles, f.name)
+               for f in dataclasses.fields(s.particles)}
+        out.update({f.name: getattr(s, f.name) for f in dataclasses.fields(s)
+                    if torch.is_tensor(getattr(s, f.name))})
+        out["rigid"] = {f.name: getattr(s.rigid, f.name)
+                        for f in dataclasses.fields(s.rigid)}
+        return out
 
     def reference(self) -> dict:
         """The reference's step from the snapshot (computed once)."""
         if getattr(self, "_ref", None) is None:
             s0 = self.start_state()
             t = time.perf_counter()
-            self._ref = self.ref_mod.step(s0["pos"], s0["vel"],
-                                          s0["material"], self.ph)
+            self._ref = self.ref_mod.step(s0, self.ph)
             self.timings["reference_s"] = time.perf_counter() - t
         return self._ref
 
@@ -419,6 +517,8 @@ class Cell:
                                  if k in self.held_vals})
         if self.implicit:
             out["cg_iters"] = self.held_cg
+        if "rigid" in out:
+            out["bodies"] = bodies_of(out.pop("rigid"))
         nums = check.compare(out, ref, self.ph)
         nums["segment_breaks"] = self.segment_breaks
         nums["settle_failed"] = self.settle_failed
@@ -431,21 +531,42 @@ class Cell:
         return nums
 
     def pair_work(self) -> dict:
-        """Pairs of the snapshot's fluid rows inside the radius (all, and
-        with a wall neighbour), the rows a fluid pass reads, the rows and
-        the grid's cells, counted by the reference's neighbour search."""
+        """The work of the snapshot's pair passes, counted by the
+        reference's neighbour search: pairs inside the radius of the rows
+        that produce (fluid rows and the rows of present dynamic bodies;
+        all, and with a rigid neighbour) and the rows such a pass reads;
+        of the dynamic rows alone (the bodies' own passes) their pairs,
+        those within one object, those touching another object (a rigid
+        neighbour of another object closer than a particle diameter) and
+        the rows they read; the rows and the grid's cells."""
         s0 = self.start_state()
         mat = s0["material"]
         ref = self.ref_mod
         pr = ref.Pairs(s0["pos"].double(), mat != 0, self.ph)
-        fi = mat[pr.i] == ref.FLUID
-        near = torch.zeros_like(mat, dtype=torch.bool)
-        near[pr.j[fi]] = True
-        read = (mat == ref.FLUID) | near
+        obj = s0["object_id"]
+        body = present_bodies(s0["rigid"])
+        dyn = (mat == ref.RIGID) & (s0["is_dynamic"] > 0) & (obj >= 0) & \
+            body[obj.clamp(0, body.numel() - 1).long()]
+        prod = (mat == ref.FLUID) | dyn
+
+        def rows_read(rows, sel):
+            near = torch.zeros_like(mat, dtype=torch.bool)
+            near[pr.j[sel]] = True
+            return int((rows | near).sum())
+
+        fi = prod[pr.i]
+        di = dyn[pr.i]
+        other = (mat[pr.j] == ref.RIGID) & (obj[pr.j] != obj[pr.i]) & \
+            (obj[pr.j] >= 0)
         return dict(pairs=int(fi.sum()),
                     wall_pairs=int((fi & (mat[pr.j] == ref.RIGID)).sum()),
-                    rows_read=int(read.sum()), n=int(mat.numel()),
-                    cells=math.prod(self.ph.grid_num))
+                    rows_read=rows_read(prod, fi), n=int(mat.numel()),
+                    cells=math.prod(self.ph.grid_num),
+                    dyn_pairs=int(di.sum()),
+                    same_pairs=int((di & (obj[pr.j] == obj[pr.i])).sum()),
+                    touch_pairs=int((di & other & (pr.d2 < self.ph.diameter
+                                                   ** 2)).sum()),
+                    dyn_rows_read=rows_read(dyn, di))
 
 
 def launch_counts() -> dict:
@@ -455,7 +576,9 @@ def launch_counts() -> dict:
     graph_loop.flush_launches()
     out: dict = {}
     for key, n in pair_kernels.launches.items():
-        body = key.split("/")[1].split("@")[0].split("+")[0]
+        name = key.split("/")[1]
+        body = name.split("@")[0].split("+")[0] + \
+            ("+rigid" if name.endswith("+rigid") else "")
         out[body] = out.get(body, 0) + n
     return out
 

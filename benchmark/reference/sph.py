@@ -11,10 +11,11 @@ here and extended with walls, computed over an explicit list of pairs built
 from a cell grid and summed in blocks, so that two million rows fit on one
 card.
 
-It imports nothing of the measured program. It is handed positions,
-velocities and materials, and works out everything else again: the wall
-volumes, the densities and alpha factors at the start of the step, the
-neighbours before and after the advection, and the step itself. Every
+It imports nothing of the measured program. Of the snapshot it is handed
+(``benchmark/harness.py`` states what a reference is handed) it reads the
+positions, velocities and materials, and works out everything else again:
+the wall volumes, the densities and alpha factors at the start of the step,
+the neighbours before and after the advection, and the step itself. Every
 quantity is computed in ``dtype`` (float64 for the reference; a lower
 precision for the control).
 """
@@ -398,7 +399,13 @@ def _avg_over_active(x: torch.Tensor, n_active: int) -> float:
     return float(x.sum()) / n_active
 
 
-def step(pos, vel, mat, ph: Physics, dtype=torch.float64) -> dict:
+def step(start: dict, ph: Physics, dtype=torch.float64) -> dict:
+    """:func:`step_rows` from a snapshot's ``pos``, ``vel`` and
+    ``material``."""
+    return step_rows(start["pos"], start["vel"], start["material"], ph, dtype)
+
+
+def step_rows(pos, vel, mat, ph: Physics, dtype=torch.float64) -> dict:
     """One DFSPH step of the configuration from positions, velocities and
     materials (1 fluid, 2 wall, 0 empty row). Returns the fields at the
     step's end, in the input's row order (``pos``, ``vel``, ``density``,

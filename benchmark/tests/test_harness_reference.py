@@ -59,7 +59,7 @@ def test_step_matches_the_oracle():
     ph = physics()
     pos, vel = block(2)
     mat = torch.full((len(pos),), sph.FLUID, dtype=torch.int32)
-    ref = sph.step(pos, vel, mat, ph)
+    ref = sph.step_rows(pos, vel, mat, ph)
     orc = Oracle(pos.numpy(), vel.numpy(), h=ph.h, dt=ph.dt, v0=ph.v0,
                  viscosity=ph.viscosity, surface_tension=ph.surface_tension,
                  domain=(ph.domain_start, ph.domain_end))
@@ -97,7 +97,7 @@ def test_compare_of_the_reference_with_itself():
     ph = physics(vel_cap_cfl=1.0)
     pos, vel = block(4)
     mat = torch.full((len(pos),), sph.FLUID, dtype=torch.int32)
-    ref = sph.step(pos, vel * 0.1, mat, ph)
+    ref = sph.step_rows(pos, vel * 0.1, mat, ph)
     nums = check.compare(check.sort_rows(ref, ph), ref, ph)
     assert nums["match_breaks"] == 0 and nums["order_breaks"] == 0
     for k in ("pos_gap", "vel_gap", "rho_gap", "alpha_gap", "volume_gap",
@@ -115,8 +115,8 @@ def test_lower_precision_reads_its_gap(dtype):
     ph = physics(vel_cap_cfl=1.0)
     pos, vel = block(5)
     mat = torch.full((len(pos),), sph.FLUID, dtype=torch.int32)
-    ref = sph.step(pos, vel * 0.1, mat, ph)
-    low = sph.step(pos, vel * 0.1, mat, ph, dtype=dtype)
+    ref = sph.step_rows(pos, vel * 0.1, mat, ph)
+    low = sph.step_rows(pos, vel * 0.1, mat, ph, dtype=dtype)
     low = check.sort_rows({k: (v.double() if torch.is_tensor(v) and
                                v.is_floating_point() else v)
                            for k, v in low.items()}, ph)
